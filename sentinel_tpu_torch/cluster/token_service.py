@@ -40,7 +40,6 @@ from sentinel_tpu_torch.engine.decide import (
 )
 from sentinel_tpu_torch.engine.rules import (
     ClusterFlowRule,
-    RuleIndex,
     build_rule_table,
     drain_pending_clear,
 )

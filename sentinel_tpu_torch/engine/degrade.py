@@ -24,7 +24,6 @@ from sentinel_tpu_torch.engine.state import (
     BR_CLOSED,
     BR_HALF_OPEN,
     BR_OPEN,
-    BreakerState,
     EngineState,
     OutcomeChannel,
 )

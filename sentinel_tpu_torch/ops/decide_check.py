@@ -18,11 +18,7 @@ import torch
 
 from sentinel_tpu_torch.engine.config import EngineConfig
 from sentinel_tpu_torch.engine.decide import RequestBatch, make_batch
-from sentinel_tpu_torch.engine.rules import (
-    ClusterFlowRule,
-    ControlBehavior,
-    ThresholdMode,
-)
+from sentinel_tpu_torch.engine.rules import ClusterFlowRule, ThresholdMode
 from sentinel_tpu_torch.engine.state import EngineState, clone_state
 from sentinel_tpu_torch.ops.decide_cuda import (
     decide_core_kernel,
