@@ -110,10 +110,15 @@ def phase_parity(torch, dev, cfg, table, state):
     """Kernel vs plain version, bitwise, at every N of the serve ladder."""
     from sentinel_tpu_torch.ops import decide_check as DC
 
+    from sentinel_tpu_torch.engine.decide import TokenStatus
+
     rng = np.random.default_rng(2024)
     zipf = DC.ZipfIds(F, alpha=1.1)
     max_err, checked = 0.0, 0
+    tight = table.namespace_id[0]  # flow 0, the hottest id, is in it
     for n in SIZES:
+        # a guard budget the pulls cross inside the first steps at every N
+        table.ns_max_qps[tight] = float(n // 16)
         for uniform in (True, False):
             c = cfg._replace(batch_size=n)
             batches, nows = [], []
@@ -123,8 +128,8 @@ def phase_parity(torch, dev, cfg, table, state):
                                                 unknown=max(1, n // 100)))
                 nows.append(now)
                 now += 45 if k == 0 else 130  # the later steps roll
-            err, bad, _ = DC.check_steps(c, table, state, batches, nows,
-                                         uniform)
+            err, bad, _, statuses = DC.check_steps(c, table, state,
+                                                   batches, nows, uniform)
             torch.cuda.synchronize()
             if bad:
                 raise AssertionError(
@@ -132,7 +137,15 @@ def phase_parity(torch, dev, cfg, table, state):
                 )
             max_err = max(max_err, err)
             checked += 3
-            log(f"parity N={n} uniform={uniform}: 3 steps bitwise equal")
+            seen = torch.bincount(torch.cat(statuses).long().cpu(),
+                                  minlength=len(TokenStatus))
+            hist = {TokenStatus(i).name: int(c)
+                    for i, c in enumerate(seen.tolist()) if c}
+            if not seen[int(TokenStatus.TOO_MANY_REQUEST)]:
+                raise AssertionError(f"N={n}: the namespace guard never "
+                                     f"crossed: {hist}")
+            log(f"parity N={n} uniform={uniform}: 3 steps bitwise equal; "
+                f"verdicts {hist}")
     return max_err, checked
 
 
@@ -357,8 +370,7 @@ def main() -> int:
     rng = np.random.default_rng(1)
     table, index = build_rule_table(cfg, DC.mixed_rules(F, NS, rng),
                                     ns_max_qps=1e9,
-                                    connected={"ns0": 4}, device=dev)
-    table.ns_max_qps[index.namespace_slot(DC.TIGHT_NS)] = 2000.0
+                                    connected={"ns1": 4}, device=dev)
     state = make_state(cfg, device=dev)
     log(f"device state: {state_nbytes(state)} B at F={F}, B={B}")
 

@@ -33,7 +33,8 @@ def mixed_rules(n_flows: int, n_namespaces: int,
                 rng: np.random.Generator) -> List[ClusterFlowRule]:
     """``n_flows`` rules with flow_id = slot order 0..n-1: 4 in 5 DEFAULT,
     the rest WARM_UP / RATE_LIMITER / WARM_UP_RATE_LIMITER; both threshold
-    modes; the last namespace is ``tight`` (its guard is crossed)."""
+    modes; namespace 0, which holds flow 0 (the hottest id of a Zipf pull),
+    is ``tight``: callers give it a small guard budget to cross."""
     behaviors = rng.choice(
         [0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 1, 2, 3], size=n_flows
     )
@@ -45,7 +46,7 @@ def mixed_rules(n_flows: int, n_namespaces: int,
             flow_id=i,
             count=float(counts[i]),
             mode=ThresholdMode.GLOBAL if i % 3 else ThresholdMode.AVG_LOCAL,
-            namespace=TIGHT_NS if ns == n_namespaces - 1 else f"ns{ns}",
+            namespace=TIGHT_NS if ns == 0 else f"ns{ns}",
             control_behavior=int(behaviors[i]),
             warm_up_period_sec=int(rng.integers(2, 12)),
             max_queueing_time_ms=int(rng.integers(50, 800)),
@@ -93,9 +94,10 @@ def check_steps(config: EngineConfig, table, state: EngineState,
                 batches, nows, uniform: bool):
     """Step the kernel and its plain version over ``batches`` at ``nows``
     from two copies of ``state``. Returns ``(max_abs_err, mismatches,
-    kernel_state)``; mismatches lists ``"step k: field"`` labels."""
+    kernel_state, statuses)``: mismatches lists ``"step k: field"`` labels,
+    statuses the kernel side's verdict statuses of every step."""
     st_k, st_p = clone_state(state), clone_state(state)
-    mismatches, max_err = [], 0.0
+    mismatches, max_err, statuses = [], 0.0, []
     for k, (batch, now) in enumerate(zip(batches, nows)):
         seen = {}
 
@@ -129,4 +131,5 @@ def check_steps(config: EngineConfig, table, state: EngineState,
             if err is not None:
                 mismatches.append(f"step {k}: {label}")
                 max_err = max(max_err, err)
-    return max_err, mismatches, st_k
+        statuses.append(v_k.status)
+    return max_err, mismatches, st_k, statuses
