@@ -9,18 +9,18 @@ Builds the port's CUDA kernels from ``sentinel_tpu_torch/csrc`` (one
 1. holds the decide kernel against its plain PyTorch version on the card,
    bitwise (``torch.equal``), at F=100k flows, 64 namespaces, 10 buckets and
    N = 64 / 1024 / 16384 rows, uniform and mixed acquires, over steps that
-   cross bucket boundaries and a namespace guard;
+   cross a namespace guard and span two seconds, so that the 1 s ring wraps
+   onto written columns (rolled and masked) and reads expiring buckets
+   (``tests/torch_kernel_check.py`` holds the workloads);
 2. times the kernel and the plain version at those N with CUDA events;
 3. drives the service path at full size: ``DefaultTokenService`` with 100k
    flow rules (a shaped subset among them), warmed up, answering
    bounded-Zipf (alpha 1.1) pulls of 64, 1024, 16384 and 65536 rows (the
-   last takes the fused depth-4 path); its verdicts must equal those of a
-   second service on the torch-ops pipeline, fed the same pulls at the same
-   engine clock, and the kernel's launch count must rise by exactly one per
-   device step;
-4. breaks a served pull's time down with ``torch.profiler`` (device busy
-   share, kernel launches a pull, the top device kernels);
-5. prints the timings, the card's name and power limit, one
+   last takes the fused depth-4 path) over more than three seconds of
+   engine clock; its verdicts must equal those of a second service on the
+   torch-ops pipeline, fed the same pulls at the same engine clock, and the
+   kernel's launch count must rise by exactly one per device step;
+4. prints the timings, the card's name and power limit, one
    ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
 
 Any failed check raises and exits non-zero. With no CUDA device, or run from
@@ -29,6 +29,7 @@ a directory without the package, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import subprocess
@@ -42,6 +43,9 @@ F, NS, B = 100_000, 64, 10
 SIZES = (64, 1024, 16384)  # the serve ladder's ends and middle
 PULLS = (64, 1024, 16384, 65536)  # the last: 4 full frames, fused depth 4
 FUSED_DEPTH = 4
+# engine-clock ms between served pulls, cycled: same bucket, a roll, a
+# short step and a near-full window, so each round spans 1.1 s of the ring
+ADVANCES_MS = (5, 130, 45, 930)
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_F32_OPS_PER_S = 67e12  # H100 SXM float32, outside the tensor cores
 
@@ -108,7 +112,7 @@ def decide_bytes(cols, out, rows_touched: int, tails: int,
 
 def phase_parity(torch, dev, cfg, table, state):
     """Kernel vs plain version, bitwise, at every N of the serve ladder."""
-    from sentinel_tpu_torch.ops import decide_check as DC
+    import torch_kernel_check as DC
 
     from sentinel_tpu_torch.engine.decide import TokenStatus
 
@@ -121,22 +125,24 @@ def phase_parity(torch, dev, cfg, table, state):
         table.ns_max_qps[tight] = float(n // 16)
         for uniform in (True, False):
             c = cfg._replace(batch_size=n)
-            batches, nows = [], []
-            now = 30_040
-            for k in range(3):
-                batches.append(DC.grouped_batch(c, rng, zipf, n, uniform,
-                                                unknown=max(1, n // 100)))
-                nows.append(now)
-                now += 45 if k == 0 else 130  # the later steps roll
-            err, bad, _, statuses = DC.check_steps(c, table, state,
-                                                   batches, nows, uniform)
+            nows = [30_040 + dt for dt in DC.STEP_OFFSETS_MS]
+            batches = [DC.grouped_batch(c, rng, zipf, n, uniform,
+                                        unknown=max(1, n // 100))
+                       for _ in nows]
+            err, bad, _, statuses, reached = DC.check_steps(
+                c, table, state, batches, nows, uniform)
             torch.cuda.synchronize()
             if bad:
                 raise AssertionError(
                     f"kernel != plain at N={n} uniform={uniform}: {bad[:8]}"
                 )
+            if reached != set(DC.COVERAGE):
+                raise AssertionError(
+                    f"N={n} uniform={uniform}: the steps reached only "
+                    f"{sorted(reached)} of {DC.COVERAGE}"
+                )
             max_err = max(max_err, err)
-            checked += 3
+            checked += len(nows)
             seen = torch.bincount(torch.cat(statuses).long().cpu(),
                                   minlength=len(TokenStatus))
             hist = {TokenStatus(i).name: int(c)
@@ -144,15 +150,17 @@ def phase_parity(torch, dev, cfg, table, state):
             if not seen[int(TokenStatus.TOO_MANY_REQUEST)]:
                 raise AssertionError(f"N={n}: the namespace guard never "
                                      f"crossed: {hist}")
-            log(f"parity N={n} uniform={uniform}: 3 steps bitwise equal; "
+            log(f"parity N={n} uniform={uniform}: {len(nows)} steps "
+                f"bitwise equal, ring wrapped onto written columns; "
                 f"verdicts {hist}")
     return max_err, checked
 
 
 def phase_timing(torch, dev, cfg, table, state):
     """Kernel and plain-version ms per step, with the byte bound."""
+    import torch_kernel_check as DC
+
     from sentinel_tpu_torch.engine.state import clone_state
-    from sentinel_tpu_torch.ops import decide_check as DC
     from sentinel_tpu_torch.ops import decide_cuda as K
 
     rng = np.random.default_rng(7)
@@ -162,17 +170,8 @@ def phase_timing(torch, dev, cfg, table, state):
         c = cfg._replace(batch_size=n)
         batch = DC.grouped_batch(c, rng, zipf, n, uniform=True,
                                  unknown=max(1, n // 100))
-        st = clone_state(state)
-        seen = {}
-
-        def grab(*args):
-            seen["args"] = args
-            return K.decide_rows(*args)
-
-        now = 50_010
-        K.decide_core_kernel(c, st, table, batch, now, grouped=True,
-                             uniform=True, rows_fn=grab)
-        args = seen["args"]
+        args = DC.kernel_args(c, table, clone_state(state), batch, 50_010,
+                              uniform=True)
         cols = args[6]
         kernel_ms = cuda_ms(lambda: K.decide_rows(*args), 50, torch)
         plain_ms = cuda_ms(lambda: K.decide_rows_plain(*args), 5, torch)
@@ -217,8 +216,9 @@ def phase_service(torch, dev):
         EngineConfig,
         ThresholdMode,
     )
+    import torch_kernel_check as DC
+
     from sentinel_tpu_torch.engine.decide import TokenStatus
-    from sentinel_tpu_torch.ops import decide_check as DC
     from sentinel_tpu_torch.ops import decide_cuda as K
 
     mc = clock.ManualClock(1_700_000_000_000)
@@ -241,7 +241,9 @@ def phase_service(torch, dev):
 
         # --- the main path, read through the launch count ----------------
         rounds = 3
-        K.decide_rows.launches = 0
+        t_start = mc.now_ms()
+        K.LAUNCHES.update(dict.fromkeys(K.LAUNCHES, 0))
+        advances = itertools.cycle(ADVANCES_MS)
         for r in range(rounds):
             for n in pulls:
                 ids = zipf(rng, n)
@@ -259,15 +261,18 @@ def phase_service(torch, dev):
                             f"service {name} differs from the torch-ops "
                             f"pipeline at n={n} round={r}"
                         )
-                mc.advance(int(rng.integers(5, 60)))
-        launches = K.decide_rows.launches
+                mc.advance(next(advances))
+        launches = K.LAUNCHES["decide_rows"]
+        spanned = mc.now_ms() - t_start
+        if spanned < 2 * cfg.n_buckets * cfg.bucket_ms:
+            raise AssertionError(f"the pulls spanned only {spanned} ms")
         if launches != rounds * steps_per_round:
             raise AssertionError(
                 f"kernel launched {launches} times for "
                 f"{rounds * steps_per_round} device steps"
             )
-        log(f"service: {rounds} rounds of pulls {pulls} equal to the "
-            f"torch-ops pipeline; {launches} kernel launches")
+        log(f"service: {rounds} rounds of pulls {pulls} over {spanned} ms "
+            f"equal to the torch-ops pipeline; {launches} kernel launches")
 
         # --- timing: host clock around each pull (materialized) ----------
         lat = {n: [] for n in pulls}
@@ -293,49 +298,6 @@ def phase_service(torch, dev):
         clock.set_clock(prev)
 
 
-def phase_profile(torch, dev):
-    """Where a served pull's time goes, from ``torch.profiler``."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from sentinel_tpu_torch.cluster.token_service import DefaultTokenService
-    from sentinel_tpu_torch.engine import (
-        ClusterFlowRule,
-        EngineConfig,
-        ThresholdMode,
-    )
-    from sentinel_tpu_torch.ops import decide_check as DC
-
-    cfg = EngineConfig(max_flows=F, max_namespaces=NS, batch_size=SIZES[-1])
-    svc = DefaultTokenService(cfg, device=dev)
-    svc.load_rules(service_rules(ClusterFlowRule, ThresholdMode),
-                   ns_max_qps=1e9)
-    svc.warmup()
-    zipf = DC.ZipfIds(F, alpha=1.1)
-    rng = np.random.default_rng(5)
-    for n in (64, SIZES[-1]):
-        pulls = [zipf(rng, n) for _ in range(10)]
-        svc.request_batch_arrays(pulls[0])
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for ids in pulls:
-                svc.request_batch_arrays(ids)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        events = prof.key_averages()
-        dev_us = sum(e.self_device_time_total for e in events)
-        launches = sum(e.count for e in events
-                       if e.key.startswith(("cudaLaunchKernel",
-                                            "cuLaunchKernel")))
-        log(f"profile n={n}: {wall * 1e3 / len(pulls):.3f} ms a pull, "
-            f"device busy {dev_us / 1e3 / len(pulls):.3f} ms a pull "
-            f"({100.0 * dev_us / 1e6 / wall:.1f}% of wall), "
-            f"{launches / len(pulls):.0f} kernel launches a pull")
-        log(events.table(sort_by="self_device_time_total", row_limit=8,
-                         max_name_column_width=48))
-
-
 def main() -> int:
     try:
         import torch
@@ -354,8 +316,10 @@ def main() -> int:
         return 3
     from sentinel_tpu_torch.engine import EngineConfig, build_rule_table
     from sentinel_tpu_torch.engine.state import make_state, state_nbytes
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    import torch_kernel_check as DC
+
     from sentinel_tpu_torch.ops import _build
-    from sentinel_tpu_torch.ops import decide_check as DC
 
     dev = torch.device("cuda")
     t0 = time.perf_counter()
@@ -377,7 +341,6 @@ def main() -> int:
     max_err, checked = phase_parity(torch, dev, cfg, table, state)
     timing = phase_timing(torch, dev, cfg, table, state)
     launches, service = phase_service(torch, dev)
-    phase_profile(torch, dev)
 
     ident = gpu_identity()
     main_n = SIZES[-1]

@@ -143,7 +143,6 @@ struct Smem {
   int warp_max[WARPS];
   int carry_max;
   float a;
-  int any_pace;
 };
 
 // Segmented inclusive scan of K float sums across one tile of THREADS rows,
@@ -356,12 +355,10 @@ __global__ void __launch_bounds__(THREADS, 1) decide_kernel(Params p) {
     sm.o_future[b] = (o_ahead > 0 && o_ahead <= p.interval_ms) ? 1 : 0;
     sm.exp_mask[b] = (sm.f_valid[b] && fs <= p.horizon) ? 1 : 0;
   }
-  if (threadIdx.x == 0) sm.any_pace = 0;
   reset_carry(sm);
 
   // ---- pass 1: gather, window read, warmup curve, threshold ------------
   int my_amax = 0;
-  int my_pace = 0;
   for (int t = 0; t < N; t += THREADS) {
     const int r = t + threadIdx.x;
     const bool in = r < N;
@@ -392,7 +389,6 @@ __global__ void __launch_bounds__(THREADS, 1) decide_kernel(Params p) {
     const bool is_warm = beh == 1 || beh == 3;
     const bool is_pace = beh == 2 || beh == 3;
     const bool warm_rows = act && is_warm;
-    my_pace |= (act && is_pace) ? 1 : 0;
     if (p.live[r]) my_amax = max(my_amax, p.acquire[r]);
 
     // warmup curve (engine/decide.py::_warmup_curve, same op order)
@@ -430,15 +426,11 @@ __global__ void __launch_bounds__(THREADS, 1) decide_kernel(Params p) {
     p.admit[r] = active_window(p, r) ? 1 : 0;
     p.pace_acc[r] = (act && is_pace) ? 1 : 0;
   }
-  // block max of live acquires (uniform closed form) and "any paced row"
+  // block max of live acquires (uniform closed form)
   for (int d = 16; d > 0; d >>= 1) {
     my_amax = max(my_amax, __shfl_xor_sync(FULL, my_amax, d));
-    my_pace |= __shfl_xor_sync(FULL, my_pace, d);
   }
-  if ((threadIdx.x & 31) == 0) {
-    sm.warp_max[threadIdx.x >> 5] = my_amax;
-    if (my_pace) atomicOr(&sm.any_pace, 1);
-  }
+  if ((threadIdx.x & 31) == 0) sm.warp_max[threadIdx.x >> 5] = my_amax;
   __syncthreads();
   if (threadIdx.x == 0) {
     int m = 0;
@@ -520,23 +512,9 @@ __global__ void __launch_bounds__(THREADS, 1) decide_kernel(Params p) {
   }
 
   // ---- pacing closed form -----------------------------------------------
-  if (sm.any_pace) {
-    pace_pass(p, sm, false);
-    const int refine = p.uniform ? 0 : p.refine_iters;
-    for (int i = 0; i < refine; ++i) pace_pass(p, sm, true);
-  } else {
-    // no paced row: every mask is false, so each pass reduces to
-    // l_rel = max(rel0, -0) + (0 + cost)
-    for (int t = 0; t < N; t += THREADS) {
-      const int r = t + threadIdx.x;
-      if (r < N) {
-        const float rel0 =
-            (float)max(wrap_sub(p.lpt[r], p.now), -(1 << 20));
-        lrel[r] = fmaxf(rel0, -0.0f) + (0.0f + cost[r]);
-      }
-    }
-    __syncthreads();
-  }
+  pace_pass(p, sm, false);
+  const int refine = p.uniform ? 0 : p.refine_iters;
+  for (int i = 0; i < refine; ++i) pace_pass(p, sm, true);
 
   // ---- final pacing verdicts, event totals, segment-tail write-back -----
   reset_carry(sm);

@@ -11,7 +11,7 @@ Three layers, mirroring the reference:
 - :func:`decide_rows` — the kernel's wrapper (the reference's
   ``_call_decide_kernel``). On CUDA tensors it launches ``csrc/decide.cu``
   (a roll launch, then the decide launch) and adds one to
-  ``decide_rows.launches``; on CPU tensors it runs :func:`decide_rows_plain`.
+  ``LAUNCHES["decide_rows"]``; on CPU tensors it runs :func:`decide_rows_plain`.
   It never falls back from the kernel.
 - :func:`decide_rows_plain` — the same function in plain torch ops (the
   per-row math of the reference's ``_make_decide_kernel``). The CPU tests
@@ -45,6 +45,9 @@ from sentinel_tpu_torch.stats import window as W
 
 # the kernel keeps the window starts of one ring in shared memory
 MAX_BUCKETS = 64
+
+# kernel launches on CUDA tensors, by wrapper; CPU calls do not count
+LAUNCHES = {"decide_rows": 0}
 
 
 class DecideRows(NamedTuple):
@@ -377,11 +380,9 @@ def decide_rows(
     )
     if err != 0:
         raise RuntimeError(f"decide kernel launch failed: CUDA error {err}")
-    decide_rows.launches += 1
+    LAUNCHES["decide_rows"] += 1
     return out
 
-
-decide_rows.launches = 0
 
 
 def decide_core_kernel(
@@ -392,13 +393,11 @@ def decide_core_kernel(
     now: int,
     grouped: bool = False,
     uniform: bool = False,
-    rows_fn=None,
 ) -> tuple:
     """Drop-in ``_decide_core`` twin backed by the kernel: same signature,
     same outputs, bitwise-equal results, state updated in place. Requires
     the grouped-batch contract; non-grouped calls take the torch-ops
-    pipeline. ``rows_fn`` replaces :func:`decide_rows` (the checks that hold
-    the kernel against :func:`decide_rows_plain` on the card pass it)."""
+    pipeline."""
     import importlib
 
     D = importlib.import_module("sentinel_tpu_torch.engine.decide")
@@ -472,7 +471,7 @@ def decide_core_kernel(
         wtok_rows=state.shaping.warm_tokens[slot],
         wfill_rows=state.shaping.warm_filled[slot],
     )
-    rows = (rows_fn or decide_rows)(
+    rows = decide_rows(
         config, state.flow.counts, state.occupy.counts, state.flow.starts,
         state.occupy.starts, now, cols, uniform,
     )

@@ -47,17 +47,25 @@ def test_port_modules_import_without_jax():
     assert out.returncode == 0, out.stderr[-2000:]
 
 
-def test_port_sources_never_name_jax():
+def _port_sources():
+    """The port's Python sources (its build outputs aside), the smoke
+    script and the workloads the smoke imports."""
     root = os.path.join(REPO, "sentinel_tpu_torch")
-    for dirpath, _, files in os.walk(root):
-        for f in files:
-            if not f.endswith(".py"):
-                continue
-            with open(os.path.join(dirpath, f)) as fh:
-                for line in fh:
-                    s = line.strip()
-                    if s.startswith(("import ", "from ")):
-                        mod = s.split()[1]
-                        assert not mod.startswith(("jax", "sentinel_tpu.")), (
-                            f, s)
-                        assert mod != "sentinel_tpu", (f, s)
+    for dirpath, dirs, files in os.walk(root):
+        dirs[:] = [d for d in dirs if d != "build"]
+        yield from (os.path.join(dirpath, f) for f in files
+                    if f.endswith(".py"))
+    yield os.path.join(REPO, "chip_smoke.py")
+    yield os.path.join(REPO, "tests", "torch_kernel_check.py")
+
+
+def test_port_sources_never_name_jax():
+    for f in _port_sources():
+        with open(f) as fh:
+            for line in fh:
+                s = line.strip()
+                if s.startswith(("import ", "from ")):
+                    mod = s.split()[1]
+                    assert not mod.startswith(("jax", "sentinel_tpu.")), (
+                        f, s)
+                    assert mod != "sentinel_tpu", (f, s)

@@ -14,8 +14,8 @@ torch = pytest.importorskip("torch")
 
 from sentinel_tpu_torch.engine import EngineConfig, build_rule_table  # noqa: E402
 from sentinel_tpu_torch.engine.state import make_state  # noqa: E402
-from sentinel_tpu_torch.ops import decide_check as DC  # noqa: E402
 from sentinel_tpu_torch.ops import decide_cuda  # noqa: E402
+import torch_kernel_check as DC  # noqa: E402
 
 
 @pytest.fixture
@@ -36,16 +36,15 @@ def _setup(device, F=4096, NS=8, N=1024, seed=0):
     return cfg, rng, table, make_state(cfg, device=device)
 
 
-def _run(device, N, uniform, seed, steps=4):
+STEPS = len(DC.STEP_OFFSETS_MS)
+
+
+def _run(device, N, uniform, seed):
     cfg, rng, table, state = _setup(device, N=max(N, 64), seed=seed)
     zipf = DC.ZipfIds(cfg.max_flows)
-    batches, nows = [], []
-    now = 10_050
-    for k in range(steps):
-        batches.append(DC.grouped_batch(cfg, rng, zipf, N, uniform,
-                                        unknown=N // 50))
-        nows.append(now)
-        now += 30 if k % 2 == 0 else 95  # crosses bucket boundaries
+    nows = [10_040 + dt for dt in DC.STEP_OFFSETS_MS]
+    batches = [DC.grouped_batch(cfg, rng, zipf, N, uniform, unknown=N // 50)
+               for _ in nows]
     return DC.check_steps(cfg, table, state, batches, nows, uniform)
 
 
@@ -53,12 +52,14 @@ def _run(device, N, uniform, seed, steps=4):
 @pytest.mark.parametrize("N", [64, 1024, 3000])
 @pytest.mark.parametrize("uniform", [True, False])
 def test_kernel_matches_plain(cuda, N, uniform):
-    before = decide_cuda.decide_rows.launches
-    max_err, mismatches, _, _ = _run(cuda, N, uniform, seed=N)
+    before = decide_cuda.LAUNCHES["decide_rows"]
+    max_err, mismatches, _, _, reached = _run(cuda, N, uniform, seed=N)
     torch.cuda.synchronize()
     assert not mismatches, mismatches[:10]
     assert max_err == 0.0
-    assert decide_cuda.decide_rows.launches - before == 4
+    assert decide_cuda.LAUNCHES["decide_rows"] - before == STEPS
+    # the ring wrapped onto written columns and expiring counts were read
+    assert reached == set(DC.COVERAGE), reached
 
 
 @pytest.mark.gpu
@@ -66,35 +67,28 @@ def test_wrapper_rejects_bad_inputs(cuda):
     cfg, rng, table, state = _setup(cuda, F=256, N=64)
     zipf = DC.ZipfIds(cfg.max_flows)
     batch = DC.grouped_batch(cfg, rng, zipf, 40, True)
-    seen = {}
-
-    def grab(config, flow, occ, fst, ost, now, cols, uniform):
-        seen.update(cols=cols, args=(config, flow, occ, fst, ost, now))
-        return decide_cuda.decide_rows(config, flow, occ, fst, ost, now,
-                                       cols, uniform)
-
-    decide_cuda.decide_core_kernel(cfg, state, table, batch, 1000,
-                                   grouped=True, rows_fn=grab)
-    config, flow, occ, fst, ost, now = seen["args"]
-    cols = dict(seen["cols"])
+    config, flow, occ, fst, ost, now, good, _ = DC.kernel_args(
+        cfg, table, state, batch, 1000, uniform=True)
+    cols = dict(good)
     cols["acquire"] = cols["acquire"].to(torch.int64)
     with pytest.raises(TypeError):
         decide_cuda.decide_rows(config, flow, occ, fst, ost, now, cols, True)
-    cols = dict(seen["cols"])
+    cols = dict(good)
     cols["cnt"] = cols["cnt"].cpu()
     with pytest.raises(ValueError):
         decide_cuda.decide_rows(config, flow, occ, fst, ost, now, cols, True)
     with pytest.raises(ValueError):
         decide_cuda.decide_rows(config, flow.transpose(0, 1), occ, fst, ost,
-                                now, seen["cols"], True)
+                                now, good, True)
 
 
 def test_cpu_tensors_take_plain_version_and_do_not_count():
-    before = decide_cuda.decide_rows.launches
-    max_err, mismatches, st, statuses = _run("cpu", 200, False, seed=3,
-                                             steps=3)
+    before = decide_cuda.LAUNCHES["decide_rows"]
+    max_err, mismatches, st, statuses, reached = _run("cpu", 200, False,
+                                                      seed=3)
     assert not mismatches and max_err == 0.0
-    assert decide_cuda.decide_rows.launches == before
+    assert reached == set(DC.COVERAGE), reached
+    assert decide_cuda.LAUNCHES["decide_rows"] == before
     assert int(st.flow.counts.sum()) > 0
     seen = set(torch.cat(statuses).tolist())
     # the tight namespace's guard is crossed; shaping and occupy answer

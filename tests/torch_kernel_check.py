@@ -1,5 +1,5 @@
-"""Seeded workloads that hold the CUDA decide kernel against its plain
-version (``chip_smoke.py`` and the GPU tests use them).
+"""Seeded workloads that hold the port's CUDA decide kernel against its plain
+version. ``chip_smoke.py`` and ``tests/test_torch_kernels.py`` import it.
 
 Everything is made from a ``numpy.random.Generator``: a rule set that mixes
 all four control behaviors, bounded-Zipf flow-id pulls, grouped batches with
@@ -7,11 +7,17 @@ prioritized rows and mixed or uniform acquires, and a namespace whose guard
 budget the pulls cross. :func:`check_steps` runs the kernel's step and the
 same step with :func:`decide_rows_plain` on two copies of one state and
 compares every output, verdict and state leaf with ``torch.equal``.
+
+:data:`STEP_OFFSETS_MS` spaces the steps so that the 1 s / 10-bucket ring
+wraps onto columns that hold counts: one step reads buckets about to expire
+(``expiring > 0``), later ones roll a written column and mask an aged one.
+:func:`check_steps` reports which of those the run reached.
 """
 
 from __future__ import annotations
 
 from typing import List, Optional
+from unittest import mock
 
 import numpy as np
 import torch
@@ -19,14 +25,24 @@ import torch
 from sentinel_tpu_torch.engine.config import EngineConfig
 from sentinel_tpu_torch.engine.decide import RequestBatch, make_batch
 from sentinel_tpu_torch.engine.rules import ClusterFlowRule, ThresholdMode
-from sentinel_tpu_torch.engine.state import EngineState, clone_state
-from sentinel_tpu_torch.ops.decide_cuda import (
-    decide_core_kernel,
-    decide_rows,
-    decide_rows_plain,
+from sentinel_tpu_torch.engine.state import (
+    ClusterEvent,
+    EngineState,
+    clone_state,
+    flow_spec,
 )
+from sentinel_tpu_torch.ops import decide_cuda
+from sentinel_tpu_torch.stats import window as W
 
 TIGHT_NS = "tight"
+
+# step times after a start 40 ms past a whole second (bucket_ms=100, B=10):
+# same bucket, a roll onto an empty column, a read of the buckets about to
+# leave the window, then two rolls onto written columns while an older
+# written column has aged out of the window
+STEP_OFFSETS_MS = (0, 45, 175, 900, 1210, 2010)
+# what check_steps reports as reached
+COVERAGE = ("rolled_written_column", "masked_aged_column", "expiring_rows")
 
 
 def mixed_rules(n_flows: int, n_namespaces: int,
@@ -90,31 +106,65 @@ def compare(a, b) -> Optional[float]:
     return float((a.double() - b.double()).abs().max())
 
 
+def ring_coverage(config: EngineConfig, state: EngineState,
+                  batch: RequestBatch, now: int) -> set:
+    """Which of :data:`COVERAGE` a step at ``now`` from ``state`` reaches:
+    it zeroes a column that holds counts, its window read must skip an aged
+    column that holds counts, or a batch row has PASS counts in the buckets
+    about to expire (the priority-occupy ``expiring`` term)."""
+    spec = flow_spec(config)
+    idx_cur, cur_start = W.bucket_index(spec, now)
+    starts = state.flow.starts.cpu()
+    counts = state.flow.counts
+    written = counts.ne(0).any(dim=2).any(dim=0).cpu()  # [B]
+    age = now - starts
+    valid = (age >= 0) & (age < spec.interval_ms)
+    reached = set()
+    if int(starts[idx_cur]) != cur_start and bool(written[idx_cur]):
+        reached.add("rolled_written_column")
+    others = torch.arange(spec.n_buckets) != idx_cur
+    if bool((others & ~valid & written).any()):
+        reached.add("masked_aged_column")
+    horizon = now + (spec.bucket_ms - now % spec.bucket_ms) - spec.interval_ms
+    exp = (valid & (starts <= horizon)).to(counts.device)
+    slots = torch.as_tensor(np.asarray(batch.flow_slot)).long()
+    slots = slots[slots >= 0].to(counts.device)
+    pass_rows = counts[slots][:, :, int(ClusterEvent.PASS)]
+    if bool((pass_rows * exp[None, :]).sum() > 0):
+        reached.add("expiring_rows")
+    return reached
+
+
 def check_steps(config: EngineConfig, table, state: EngineState,
                 batches, nows, uniform: bool):
     """Step the kernel and its plain version over ``batches`` at ``nows``
     from two copies of ``state``. Returns ``(max_abs_err, mismatches,
-    kernel_state, statuses)``: mismatches lists ``"step k: field"`` labels,
-    statuses the kernel side's verdict statuses of every step."""
+    kernel_state, statuses, reached)``: mismatches lists ``"step k: field"``
+    labels, statuses the kernel side's verdict statuses of every step,
+    reached the :data:`COVERAGE` items some step reached."""
     st_k, st_p = clone_state(state), clone_state(state)
-    mismatches, max_err, statuses = [], 0.0, []
+    mismatches, max_err, statuses, reached = [], 0.0, [], set()
     for k, (batch, now) in enumerate(zip(batches, nows)):
+        reached |= ring_coverage(config, st_p, batch, now)
         seen = {}
+        kernel, plain = decide_cuda.decide_rows, decide_cuda.decide_rows_plain
 
         def kern(*args):
-            seen["kernel"] = decide_rows(*args)
+            seen["kernel"] = kernel(*args)
             return seen["kernel"]
 
-        def plain(*args):
-            seen["plain"] = decide_rows_plain(*args)
+        def plain_rows(*args):
+            seen["plain"] = plain(*args)
             return seen["plain"]
 
-        st_k, v_k = decide_core_kernel(config, st_k, table, batch, now,
-                                       grouped=True, uniform=uniform,
-                                       rows_fn=kern)
-        st_p, v_p = decide_core_kernel(config, st_p, table, batch, now,
-                                       grouped=True, uniform=uniform,
-                                       rows_fn=plain)
+        with mock.patch.object(decide_cuda, "decide_rows", kern):
+            st_k, v_k = decide_cuda.decide_core_kernel(
+                config, st_k, table, batch, now, grouped=True,
+                uniform=uniform)
+        with mock.patch.object(decide_cuda, "decide_rows", plain_rows):
+            st_p, v_p = decide_cuda.decide_core_kernel(
+                config, st_p, table, batch, now, grouped=True,
+                uniform=uniform)
         pairs = [
             (f"rows.{f}", a, b)
             for f, a, b in zip(seen["kernel"]._fields, seen["kernel"],
@@ -132,4 +182,21 @@ def check_steps(config: EngineConfig, table, state: EngineState,
                 mismatches.append(f"step {k}: {label}")
                 max_err = max(max_err, err)
         statuses.append(v_k.status)
-    return max_err, mismatches, st_k, statuses
+    return max_err, mismatches, st_k, statuses, reached
+
+
+def kernel_args(config: EngineConfig, table, state: EngineState,
+                batch: RequestBatch, now: int, uniform: bool) -> tuple:
+    """Step ``state`` once through the kernel's route and return the
+    arguments it handed :func:`decide_rows` (to time the kernel and its
+    plain version on the same inputs)."""
+    seen = {}
+
+    def grab(*args):
+        seen["args"] = args
+        return decide_cuda.decide_rows_plain(*args)
+
+    with mock.patch.object(decide_cuda, "decide_rows", grab):
+        decide_cuda.decide_core_kernel(config, state, table, batch, now,
+                                       grouped=True, uniform=uniform)
+    return seen["args"]
