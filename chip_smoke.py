@@ -20,7 +20,22 @@ Builds the port's CUDA kernels from ``sentinel_tpu_torch/csrc`` (one
    engine clock; its verdicts must equal those of a second service on the
    torch-ops pipeline, fed the same pulls at the same engine clock, and the
    kernel's launch count must rise by exactly one per device step;
-4. prints the timings, the card's name and power limit, one
+4. holds the CMS and SALSA param kernels against their plain versions,
+   bitwise, at the service's default sketch (256 rules, depth 2, width
+   2048, two 500 ms buckets) and N = 8 / 64 / 1024 / 4096, over seven steps
+   spanning 2.7 s that roll written buckets, mask aged ones, reject rows by
+   the in-batch prefix alone and merge SALSA pairs
+   (``tests/torch_param_check.py`` holds the workloads), and times them;
+5. drives the hot-param path: per sketch, a service on the kernel and one on
+   the torch-ops core answer the same ``request_params_token`` stream (256
+   rules, Zipf values, one reload that frees and reuses slots) over more
+   than two seconds of engine clock with equal verdicts and sketches, one
+   kernel launch per request, and host p50 / p99 per request;
+6. holds the segment-prefix kernel against its plain version on ungrouped
+   Zipf flow ids (N = 64 / 1024 / 16384), times it, and runs one ungrouped
+   decide step at F=100k with ``prefix_impl="pallas"`` that must equal the
+   ``"sort"`` step in verdicts and every state leaf;
+7. prints the timings, the card's name and power limit, one
    ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
 
 Any failed check raises and exits non-zero. With no CUDA device, or run from
@@ -48,6 +63,11 @@ FUSED_DEPTH = 4
 ADVANCES_MS = (5, 130, 45, 930)
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_F32_OPS_PER_S = 67e12  # H100 SXM float32, outside the tensor cores
+PARAM_SIZES = (8, 64, 1024, 4096)  # 8: what request_params_token sends
+PREFIX_SIZES = (64, 1024, 16384)
+PARAM_REQUESTS = 600  # per sketch, half before and half after a reload
+PARAM_ADVANCES_MS = (1, 2, 4, 9)  # engine clock between param requests
+SKETCHES = ("cms", "salsa")
 
 
 def log(msg: str) -> None:
@@ -298,6 +318,265 @@ def phase_service(torch, dev):
         clock.set_clock(prev)
 
 
+def param_bytes(sketch: str, n: int, depth: int, n_buckets: int,
+                admitted: int, plane_bytes: int) -> int:
+    """Bytes one param step must move: the [N] columns (slot, D indices,
+    acquire, threshold, valid in; admit, estimate out), D x B gathered cells
+    (a SALSA cell is read as its 4-byte pair), and the admitted rows' D cell
+    writes for count-min, or the whole current plane read and written for
+    SALSA. The timed steps do not roll (no 4 MiB zeroing)."""
+    cols = n * (4 + 4 * depth + 4 + 4 + 1 + 1 + 4)
+    gathered = n * depth * n_buckets * 4
+    if sketch == "salsa":
+        return cols + gathered + 2 * plane_bytes
+    return cols + gathered + admitted * depth * 4
+
+
+def phase_param_parity(torch, dev):
+    """CMS and SALSA kernels vs their plain versions, bitwise."""
+    import torch_param_check as PC
+
+    from sentinel_tpu_torch.engine.param import ParamConfig, make_param_state
+
+    if PC.STEP_OFFSETS_MS[-1] - PC.STEP_OFFSETS_MS[0] <= 2000:
+        raise AssertionError("the param steps must span more than 2 s")
+    out = {}
+    for sketch in SKETCHES:
+        cfg = ParamConfig(sketch=sketch)
+        max_err, steps = 0.0, 0
+        for n in PARAM_SIZES:
+            batches, nows = PC.kernel_batches(cfg, n, seed=n)
+            r = PC.check_param_steps(cfg, make_param_state(cfg, device=dev),
+                                     batches, nows)
+            torch.cuda.synchronize()
+            if r.mismatches:
+                raise AssertionError(
+                    f"{sketch} kernel != plain at N={n}: {r.mismatches[:8]}"
+                )
+            missing = set(PC.coverage_for(sketch)) - r.reached
+            if missing:
+                raise AssertionError(
+                    f"{sketch} N={n}: the steps never reached "
+                    f"{sorted(missing)}")
+            max_err = max(max_err, r.max_abs_err)
+            steps += len(nows)
+            log(f"param parity {sketch} N={n}: {len(nows)} steps over "
+                f"{nows[-1] - nows[0]} ms bitwise equal; reached "
+                f"{sorted(r.reached)}; {r.admitted} rows admitted, "
+                f"{r.blocked} blocked")
+        out[sketch] = (max_err, steps)
+    return out
+
+
+def phase_param_timing(torch, dev):
+    """Param kernel and plain-version ms per step, with the byte bound."""
+    import torch_param_check as PC
+
+    from sentinel_tpu_torch.engine.param import ParamConfig, make_param_state
+
+    out = {}
+    for sketch in SKETCHES:
+        cfg = ParamConfig(sketch=sketch)
+        kernel, plain = PC.step_fns(sketch)
+        rows = {}
+        for n in PARAM_SIZES:
+            batches, nows = PC.kernel_batches(cfg, n, seed=100 + n)
+            st = make_param_state(cfg, device=dev)
+            for cols, now in zip(batches[:-1], nows[:-1]):
+                plain(st, PC.to_device(cols, dev), now, cfg.bucket_ms)
+            c, now = PC.to_device(batches[-1], dev), nows[-1]
+            st_p = PC.clone_param_state(st)
+            admit, _ = kernel(st, c, now, cfg.bucket_ms)  # rolls; then none
+            admitted = int(admit.sum())
+            kernel_ms = cuda_ms(lambda: kernel(st, c, now, cfg.bucket_ms),
+                                50, torch)
+            plain_ms = cuda_ms(lambda: plain(st_p, c, now, cfg.bucket_ms),
+                               5, torch)
+            plane = st.counts[:, 0].numel() * st.counts.element_size()
+            nbytes = param_bytes(sketch, n, cfg.depth, cfg.n_buckets,
+                                 admitted, plane)
+            ops = 40 * n  # a few dozen integer and float ops a row
+            bound_ms = max(nbytes / PEAK_BYTES_PER_S,
+                           ops / PEAK_F32_OPS_PER_S) * 1e3
+            rows[n] = dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                           bytes=nbytes, admitted=admitted)
+            log(f"timing {sketch} N={n}: kernel {kernel_ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({nbytes} B)")
+        out[sketch] = rows
+    return out
+
+
+def phase_param_service(torch, dev):
+    """The hot-param path: a service on the kernel vs one on the torch-ops
+    core, per sketch, read through the kernel's launch count."""
+    from collections import Counter
+
+    import torch_param_check as PC
+
+    from sentinel_tpu_torch.cluster.token_service import (
+        ClusterParamFlowRule,
+        DefaultTokenService,
+    )
+    from sentinel_tpu_torch.core import clock
+    from sentinel_tpu_torch.engine.param import ParamConfig
+    from sentinel_tpu_torch.ops import cms_cuda, salsa_cuda
+
+    counters = {"cms": (cms_cuda.LAUNCHES, "cms_decide_update"),
+                "salsa": (salsa_cuda.LAUNCHES, "salsa_decide_update")}
+    out = {}
+    for sketch in SKETCHES:
+        mc = clock.ManualClock(1_700_000_000_000)
+        prev = clock.set_clock(mc)
+        try:
+            rng = np.random.default_rng(11)
+            specs = PC.service_rule_specs(256, rng)
+            reload = PC.reload_specs(specs, rng, n_new=40)
+            half = PARAM_REQUESTS // 2
+            streams = (PC.service_stream(specs, rng, half),
+                       PC.service_stream(reload, rng, half))
+            svc = DefaultTokenService(param_config=ParamConfig(sketch=sketch),
+                                      device=dev)
+            ref = DefaultTokenService(
+                param_config=ParamConfig(sketch=sketch, impl="jax"),
+                device=dev)
+
+            def rules_of(sp):
+                return [ClusterParamFlowRule(s.flow_id, s.count,
+                                             s.item_thresholds) for s in sp]
+
+            for s in (svc, ref):
+                s.load_param_rules(rules_of(specs))
+                s.warmup()
+            slots_before = {f: e[0] for f, e in svc._param_rules.items()}
+            launches_of, name = counters[sketch]
+            advances = itertools.cycle(PARAM_ADVANCES_MS)
+            lat, seen = [], Counter()
+            t_start = mc.now_ms()
+            # --- the main path, read through the launch count ------------
+            launches_of.update(dict.fromkeys(launches_of, 0))
+            for part, stream in enumerate(streams):
+                if part == 1:
+                    for s in (svc, ref):
+                        s.load_param_rules(rules_of(reload))
+                for fid, acq, hashes in stream:
+                    t0 = time.perf_counter()
+                    got = svc.request_params_token(fid, acq, hashes)
+                    lat.append(time.perf_counter() - t0)
+                    want = ref.request_params_token(fid, acq, hashes)
+                    if got.status != want.status:
+                        raise AssertionError(
+                            f"{sketch}: param verdict {got.status} != "
+                            f"torch-ops core {want.status}")
+                    seen[got.status.name] += 1
+                    mc.advance(next(advances))
+            launches = launches_of[name]
+            spanned = mc.now_ms() - t_start
+            n_req = sum(len(s) for s in streams)
+            if launches != n_req:
+                raise AssertionError(
+                    f"{sketch} kernel launched {launches} times for {n_req} "
+                    f"requests")
+            if spanned <= 2 * svc.param_config.interval_ms:
+                raise AssertionError(f"the requests spanned {spanned} ms")
+            if not (seen["OK"] and seen["BLOCKED"]):
+                raise AssertionError(f"{sketch}: verdicts {dict(seen)}")
+            for f, a, b in zip(svc._param_state._fields, svc._param_state,
+                               ref._param_state):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"{sketch}: sketch leaf {f} differs")
+            slots_after = {f: e[0] for f, e in svc._param_rules.items()}
+            freed = set(slots_before.values()) - {
+                slots_before[f] for f in slots_before if f in slots_after}
+            reused = freed & {slots_after[f] for f in slots_after
+                              if f not in slots_before}
+            if not reused:
+                raise AssertionError("the reload reused no freed slot")
+            a = np.array(lat) * 1e3
+            out[sketch] = dict(
+                launches=launches, requests=n_req,
+                p50_ms=float(np.percentile(a, 50)),
+                p99_ms=float(np.percentile(a, 99)),
+                verdicts=dict(seen))
+            log(f"param service {sketch}: {n_req} requests over {spanned} ms"
+                f" equal to the torch-ops core, sketches equal; reload freed "
+                f"{len(freed)} slots and reused {len(reused)}; {launches} "
+                f"kernel launches; verdicts {dict(seen)}; p50 "
+                f"{out[sketch]['p50_ms']:.3f} ms, p99 "
+                f"{out[sketch]['p99_ms']:.3f} ms a request")
+        finally:
+            clock.set_clock(prev)
+    return out
+
+
+def phase_prefix(torch, dev, cfg, table, state):
+    """The segment-prefix kernel vs its plain version, then an ungrouped
+    decide step with prefix_impl="pallas" vs "sort"."""
+    import torch_kernel_check as DC
+
+    from sentinel_tpu_torch.engine.decide import decide, make_batch
+    from sentinel_tpu_torch.engine.prefix import segment_prefix_builder
+    from sentinel_tpu_torch.ops import prefix_cuda as PK
+
+    rng = np.random.default_rng(5)
+    zipf = DC.ZipfIds(F, alpha=1.1)
+    timing, max_err = {}, 0.0
+    for n in PREFIX_SIZES:
+        keys = torch.as_tensor(zipf(rng, n).astype(np.int32), device=dev)
+        contrib = torch.as_tensor(rng.integers(0, 4, n).astype(np.float32),
+                                  device=dev)
+        got = segment_prefix_builder(keys, "pallas")(contrib)
+        want = PK.segment_prefix_plain(keys, contrib)
+        torch.cuda.synchronize()
+        max_err = max(max_err, float((got - want).abs().max()))
+        if not torch.equal(got, want):
+            raise AssertionError(f"prefix kernel != plain at N={n}")
+        kernel_ms = cuda_ms(lambda: PK.segment_prefix(keys, contrib), 50,
+                            torch)
+        plain_ms = cuda_ms(lambda: PK.segment_prefix_plain(keys, contrib),
+                           5, torch)
+        nbytes = 12 * n
+        bound_ms = max(nbytes / PEAK_BYTES_PER_S,
+                       n / PEAK_F32_OPS_PER_S) * 1e3
+        timing[n] = dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms)
+        log(f"prefix N={n}: kernel == plain; kernel {kernel_ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms")
+
+    # one ungrouped decide step at F=100k, after two steps that fill state
+    n = SIZES[-1]
+    c_pal = cfg._replace(batch_size=n, prefix_impl="pallas")
+    c_sort = c_pal._replace(prefix_impl="sort")
+
+    def pull():
+        slots = zipf(rng, n).astype(np.int32)
+        slots[rng.choice(n, size=n // 100, replace=False)] = -1
+        return make_batch(c_pal, slots, rng.integers(1, 4, n),
+                          rng.random(n) < 0.1)
+
+    st = state
+    for now in (60_010, 60_160):
+        st, _ = decide(c_sort, st, table, pull(), now)
+    batch, now = pull(), 60_420
+    PK.LAUNCHES.update(dict.fromkeys(PK.LAUNCHES, 0))
+    st_p, v_p = decide(c_pal, st, table, batch, now)
+    torch.cuda.synchronize()
+    launches = PK.LAUNCHES["segment_prefix"]
+    st_s, v_s = decide(c_sort, st, table, batch, now)
+    if launches < 1:
+        raise AssertionError("the pallas decide step never ran the kernel")
+    pairs = [(f"verdict.{f}", a, b) for f, a, b in zip(v_p._fields, v_p, v_s)]
+    pairs += [(f"state.{pn}.{f}", a, b)
+              for pn, pa, pb in zip(st_p._fields, st_p, st_s)
+              for f, a, b in zip(pa._fields, pa, pb)]
+    bad = [label for label, a, b in pairs if not torch.equal(a, b)]
+    if bad:
+        raise AssertionError(f"pallas decide != sort decide: {bad}")
+    ok = int((v_p.status == 0).sum())
+    log(f"ungrouped decide N={n}: prefix_impl pallas == sort in verdicts "
+        f"and every state leaf; {launches} prefix kernel launches; "
+        f"{ok} rows OK")
+    return launches, max_err, timing
+
+
 def main() -> int:
     try:
         import torch
@@ -341,6 +620,11 @@ def main() -> int:
     max_err, checked = phase_parity(torch, dev, cfg, table, state)
     timing = phase_timing(torch, dev, cfg, table, state)
     launches, service = phase_service(torch, dev)
+    param_parity = phase_param_parity(torch, dev)
+    param_timing = phase_param_timing(torch, dev)
+    param_service = phase_param_service(torch, dev)
+    prefix_launches, prefix_err, prefix_timing = phase_prefix(
+        torch, dev, cfg, table, state)
 
     ident = gpu_identity()
     main_n = SIZES[-1]
@@ -359,7 +643,41 @@ def main() -> int:
         "parity_steps": checked,
         "by_n": {str(n): timing[n] for n in SIZES},
     }]
+    for sketch, name, line in (("cms", "cms_decide_update", 49),
+                               ("salsa", "salsa_decide_update", 37)):
+        main_row = param_timing[sketch][PARAM_SIZES[0]]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"sentinel_tpu_torch/csrc/{sketch}.cu",
+            "replaces": f"sentinel_tpu/ops/{sketch}_pallas.py:{line}",
+            "launches": param_service[sketch]["launches"],
+            "max_abs_err": param_parity[sketch][0],
+            "ms": main_row["ms"],
+            "plain_ms": main_row["plain_ms"],
+            "bound_ms": main_row["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": None,
+            "parity_steps": param_parity[sketch][1],
+            "by_n": {str(n): v for n, v in param_timing[sketch].items()},
+        })
+    main_row = prefix_timing[PREFIX_SIZES[-1]]
+    kernels.append({
+        "name": "segment_prefix",
+        "route": "cuda",
+        "source": "sentinel_tpu_torch/csrc/prefix.cu",
+        "replaces": "sentinel_tpu/ops/prefix_pallas.py:32",
+        "launches": prefix_launches,
+        "max_abs_err": prefix_err,
+        "ms": main_row["ms"],
+        "plain_ms": main_row["plain_ms"],
+        "bound_ms": main_row["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "by_n": {str(n): v for n, v in prefix_timing.items()},
+    })
     log(json.dumps({"service": {str(n): v for n, v in service.items()},
+                    "param_service": param_service,
                     "gpu": ident}))
     log(ident)
     log(json.dumps({"kernels": kernels}))

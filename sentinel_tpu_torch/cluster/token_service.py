@@ -13,8 +13,12 @@ serving path is the reference's:
   oversized pull (greedy largest-fit over the fuse ladder, e.g. 8 / 4 / 2);
 - verdict materialization outside the lock, back in request order.
 
-Leases, HA export/replication, rebalance (MOVED), the param sketch,
-outcome reports, push, metrics and trace hooks are later slices.
+The hot-param path (``load_param_rules``, ``request_params_token``) steps
+the param sketch through ``engine.param.param_decide``: the CUDA CMS or
+SALSA kernel on a card, the torch-ops core with ``ParamConfig(impl="jax")``.
+
+Leases, HA export/replication, rebalance (MOVED), outcome reports, push,
+metrics and trace hooks are later slices.
 """
 
 from __future__ import annotations
@@ -37,6 +41,13 @@ from sentinel_tpu_torch.engine.decide import (
     make_batch,
     make_batch_into,
     alloc_fused_batch,
+)
+from sentinel_tpu_torch.engine.param import (
+    NEVER as PARAM_NEVER,
+    ParamConfig,
+    hash_indices,
+    make_param_state,
+    param_decide,
 )
 from sentinel_tpu_torch.engine.rules import (
     ClusterFlowRule,
@@ -89,6 +100,18 @@ class _PrepCache:
 
 
 @dataclass(frozen=True)
+class ClusterParamFlowRule:
+    """Cluster hot-param rule (``ParamFlowRule`` + ``ClusterFlowConfig``):
+    a per-value QPS threshold, with per-item overrides keyed by the value's
+    stable 64-bit hash (the ``ParamFlowItem`` analog)."""
+
+    flow_id: int
+    count: float
+    item_thresholds: Optional[Tuple[Tuple[int, float], ...]] = None
+    namespace: str = "default"
+
+
+@dataclass(frozen=True)
 class TokenResult:
     """``TokenResult.java`` — status + remaining + wait hint."""
 
@@ -102,7 +125,7 @@ class TokenResult:
 
 
 class DefaultTokenService:
-    """Engine-backed token service, decision path only.
+    """Engine-backed token service: the flow decision and hot-param paths.
 
     ``device`` defaults to ``cuda``; the tests pass ``device="cpu"``. The
     step updates the state tensors in place (the port of the reference's
@@ -115,6 +138,7 @@ class DefaultTokenService:
     def __init__(
         self,
         config: Optional[EngineConfig] = None,
+        param_config: Optional[ParamConfig] = None,
         device: DeviceLike = None,
         serve_buckets: Optional[Sequence[int]] = None,
         fuse_depths: Optional[Sequence[int]] = (8, 4, 2),
@@ -150,6 +174,16 @@ class DefaultTokenService:
         self._epoch_ms: Optional[int] = None
         self._connected: Dict[str, int] = {}
         self._ns_max_qps = 30_000.0
+        # hot-param sketch path (ClusterParamFlowChecker analog)
+        self._rules_mutex = threading.RLock()
+        self.param_config = param_config or ParamConfig()
+        self._param_state = make_param_state(self.param_config,
+                                             device=self.device)
+        self._param_rules: Dict[int, Tuple[int, float, Dict[int, float]]] = {}
+        self._param_free = list(
+            range(self.param_config.max_param_rules - 1, -1, -1)
+        )
+        self._param_rules_src: Dict[int, ClusterParamFlowRule] = {}
 
     @staticmethod
     def _prep_batch(cfg, slots, acq, pr):
@@ -235,6 +269,9 @@ class DefaultTokenService:
             for col in (st.shaping.lpt, st.shaping.warm_filled,
                         st.breaker.opened_ms, st.breaker.probe_ms):
                 col.copy_(torch.where(col == NEVER, col, col - delta))
+            # the param sketch's starts are engine-ms too
+            pst = self._param_state.starts
+            pst.copy_(torch.where(pst == PARAM_NEVER, pst, pst - delta))
             self._epoch_ms += delta
             now -= delta
         return now
@@ -261,6 +298,30 @@ class DefaultTokenService:
                 ws, _ = self._fused_step_fn(fdepth, True)(
                     ws, self._table, stacked, now
                 )
+            # the param step at request_params_token's smallest padded
+            # shape, on a throwaway sketch (nothing valid)
+            pc = self.param_config
+            n_pad = 8
+            idx = hash_indices(np.zeros(1, np.int64), pc.depth,
+                               pc.cell_width)
+            idx_slim = None
+            if pc.slim_enabled:
+                from sentinel_tpu_torch.sketch.slim import slim_indices
+
+                si = slim_indices(pc, np.zeros(1, np.int64))
+                idx_slim = self._dev(np.broadcast_to(si, (n_pad, si.shape[1])))
+            dev = self.device
+            param_decide(
+                pc,
+                make_param_state(pc, device=dev),
+                torch.zeros((n_pad,), dtype=torch.int32, device=dev),
+                self._dev(np.broadcast_to(idx, (n_pad, idx.shape[1]))),
+                torch.zeros((n_pad,), dtype=torch.int32, device=dev),
+                torch.zeros((n_pad,), dtype=torch.float32, device=dev),
+                torch.zeros((n_pad,), dtype=torch.bool, device=dev),
+                now,
+                idx_slim=idx_slim,
+            )
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
 
@@ -467,3 +528,121 @@ class DefaultTokenService:
                         int(wait[i]))
             for i in range(n)
         ]
+
+    # -- hot-param path -------------------------------------------------------
+    def _dev(self, a: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(np.ascontiguousarray(a), device=self.device)
+
+    def load_param_rules(self, rules: List[ClusterParamFlowRule]) -> None:
+        """``ClusterParamFlowRuleManager`` analog: slots stay stable across
+        reloads, and a freed slot's sketch row is cleared."""
+        with self._rules_mutex, self._lock:
+            live = {r.flow_id for r in rules}
+            # check capacity before mutating, so a failed load leaves the
+            # rule set as it was
+            n_new = len({r.flow_id for r in rules
+                         if r.flow_id not in self._param_rules})
+            n_freed = sum(1 for fid in self._param_rules if fid not in live)
+            if n_new > len(self._param_free) + n_freed:
+                raise ValueError(
+                    f"param rule capacity exceeded: need {n_new} new slots, "
+                    f"have {len(self._param_free) + n_freed}"
+                )
+            st = self._param_state
+            for fid in list(self._param_rules):
+                if fid not in live:
+                    slot, _, _ = self._param_rules.pop(fid)
+                    self._param_free.append(slot)
+                    # the whole row: fat cells (zeroed SALSA cells are
+                    # unmerged), the slim twin row and the merge counter
+                    st.counts[slot].zero_()
+                    st.slim[slot].zero_()
+                    st.merges[slot] = 0
+            for rule in rules:
+                existing = self._param_rules.get(rule.flow_id)
+                slot = existing[0] if existing else None
+                if slot is None:
+                    if not self._param_free:
+                        raise ValueError("param rule capacity exceeded")
+                    slot = self._param_free.pop()
+                items = dict(rule.item_thresholds or ())
+                self._param_rules[rule.flow_id] = (slot, rule.count, items)
+            self._param_rules_src = {r.flow_id: r for r in rules}
+
+    def load_namespace_param_rules(
+        self, namespace: str, rules: List[ClusterParamFlowRule]
+    ) -> None:
+        """Replace one namespace's param rules, keeping the others."""
+        fixed = [
+            r if r.namespace == namespace
+            else ClusterParamFlowRule(r.flow_id, r.count, r.item_thresholds,
+                                      namespace)
+            for r in rules
+        ]
+        with self._rules_mutex:
+            with self._lock:
+                keep = [
+                    r for r in self._param_rules_src.values()
+                    if r.namespace != namespace
+                ]
+            self.load_param_rules(keep + fixed)
+
+    def current_param_rules(
+        self, namespace: Optional[str] = None
+    ) -> List[ClusterParamFlowRule]:
+        with self._lock:
+            rules = list(self._param_rules_src.values())
+        if namespace is not None:
+            rules = [r for r in rules if r.namespace == namespace]
+        return rules
+
+    def request_params_token(self, flow_id, acquire,
+                             param_hashes) -> TokenResult:
+        """Windowed-sketch per-value admission. All values of the request
+        are judged together and any blocked value blocks it (reference
+        ``ClusterParamFlowChecker``); the admitted values' counts stand on
+        a mixed verdict (a conservative overcount)."""
+        if not param_hashes:
+            return TokenResult(TokenStatus.OK)
+        pc = self.param_config
+        with self._lock:
+            entry = self._param_rules.get(int(flow_id))
+            if entry is None:
+                return TokenResult(TokenStatus.NO_RULE_EXISTS)
+            slot, count, items = entry
+            hashes = np.asarray(list(param_hashes), dtype=np.int64)
+            idx = hash_indices(hashes, pc.depth, pc.cell_width)
+            n = hashes.shape[0]
+            # pad to a power of two >= 8, the reference's compiled shapes
+            n_pad = max(8, 1 << (n - 1).bit_length())
+            pad = n_pad - n
+            idx = np.pad(idx, ((0, pad), (0, 0)))
+            idx_slim = None
+            if pc.slim_enabled:
+                from sentinel_tpu_torch.sketch.slim import slim_indices
+
+                idx_slim = self._dev(np.pad(slim_indices(pc, hashes),
+                                            ((0, pad), (0, 0))))
+            thresholds = np.array(
+                [items.get(int(h), count) for h in hashes], dtype=np.float32
+            )
+            thresholds = np.pad(thresholds, (0, pad))
+            valid = np.zeros(n_pad, dtype=bool)
+            valid[:n] = True
+            now = self._engine_now()
+            dev = self.device
+            _, admit, _est = param_decide(
+                pc,
+                self._param_state,
+                torch.full((n_pad,), slot, dtype=torch.int32, device=dev),
+                self._dev(idx),
+                torch.full((n_pad,), int(acquire), dtype=torch.int32,
+                           device=dev),
+                self._dev(thresholds),
+                self._dev(valid),
+                now,
+                idx_slim=idx_slim,
+            )
+        if bool(admit[:n].all()):
+            return TokenResult(TokenStatus.OK)
+        return TokenResult(TokenStatus.BLOCKED)

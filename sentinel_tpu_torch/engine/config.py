@@ -28,8 +28,9 @@ class EngineConfig(NamedTuple):
     # admission mask a subset of the sequential-greedy set)
     admission_refine_iters: int = 3
     # segment-prefix implementation for non-grouped batches: "matmul",
-    # "sort", "auto" (matmul ≤ 2048 rows, sort above) or "pallas" (not
-    # ported yet). Grouped host batches always take the "grouped" prefix.
+    # "sort", "auto" (matmul ≤ 2048 rows, sort above) or "pallas" (the
+    # CUDA segment-prefix kernel, ops/prefix_cuda.py). Grouped host batches
+    # always take the "grouped" prefix.
     prefix_impl: str = "auto"
     # decision-step backend: "pallas" runs grouped batches through the
     # hand-written CUDA kernel (ops/decide_cuda.py + csrc/decide.cu); "auto"

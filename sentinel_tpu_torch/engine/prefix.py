@@ -12,7 +12,8 @@
   ``torch.set_float32_matmul_precision("highest")``), the counterpart of the
   reference's ``Precision.HIGHEST``.
 - ``sort``: one stable argsort per builder, then the grouped prefix.
-- ``pallas``: the reference's tiled prefix kernel; not ported yet.
+- ``pallas``: the reference's tiled prefix kernel, ported as the CUDA
+  kernel ``ops/prefix_cuda.py`` (its plain version on CPU tensors).
 
 Contributions must be non-negative integer-valued float32.
 """
@@ -59,10 +60,14 @@ def segment_prefix_builder(keys: torch.Tensor, impl: str = "auto"):
         return _grouped_prefix(keys)
 
     if impl == "pallas":
-        raise NotImplementedError(
-            "prefix_impl='pallas' (the reference's ops/prefix_pallas.py "
-            "kernel) is not ported yet; use 'auto', 'matmul' or 'sort'"
-        )
+        from sentinel_tpu_torch.ops.prefix_cuda import segment_prefix
+
+        keys32 = keys.to(torch.int32).contiguous()
+
+        def prefix_kernel(contrib: torch.Tensor) -> torch.Tensor:
+            return segment_prefix(keys32, contrib)
+
+        return prefix_kernel
 
     if impl == "matmul":
         if keys.device.type == "cuda":

@@ -3,10 +3,12 @@
 The dicts hold one numpy array per leaf, keyed by the reference pytree's
 field path: ``flow.counts``, ``shaping.lpt``, ``breaker.state`` for an
 ``EngineState``; ``valid``, ``count``, ``br_strategy`` for a ``RuleTable``
-(a ``br_*`` key is absent when the table has no degrade rules). The same
-layout comes out of any ``NamedTuple`` tree whose leaves numpy can read, so
-a JAX ``EngineState`` flattens to an identical dict and both packages can
-step the same state.
+(a ``br_*`` key is absent when the table has no degrade rules); ``starts``,
+``counts``, ``slim``, ``slim_auth``, ``merges`` for a ``ParamState`` (the
+``param`` block of the reference service's state export). The same layout
+comes out of any ``NamedTuple`` tree whose leaves numpy can read, so a JAX
+``EngineState`` or ``ParamState`` flattens to an identical dict and both
+packages can step the same state.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import numpy as np
 import torch
 
 from sentinel_tpu_torch._device import DeviceLike, resolve_device
+from sentinel_tpu_torch.engine.param import ParamState
 from sentinel_tpu_torch.engine.rules import RuleTable
 from sentinel_tpu_torch.engine.state import (
     BreakerState,
@@ -82,4 +85,22 @@ def rules_from_numpy(d: Dict[str, np.ndarray],
         field: (torch.as_tensor(np.array(d[field]), device=dev)
                 if field in d else None)
         for field in RuleTable._fields
+    })
+
+
+def param_state_to_numpy(state) -> Dict[str, np.ndarray]:
+    """``{"starts": ..., "counts": ..., ...}`` for a port or reference
+    param state."""
+    return {field: np.array(_np(getattr(state, field)))
+            for field in ParamState._fields}
+
+
+def param_state_from_numpy(d: Dict[str, np.ndarray],
+                           device: DeviceLike = None) -> ParamState:
+    """A :class:`ParamState` on ``device`` (``cuda`` unless told otherwise)
+    from a :func:`param_state_to_numpy` dict; dtypes are kept."""
+    dev = resolve_device(device)
+    return ParamState(**{
+        field: torch.as_tensor(np.array(d[field]), device=dev)
+        for field in ParamState._fields
     })

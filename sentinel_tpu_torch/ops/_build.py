@@ -3,9 +3,9 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into a shared library with a
 plain C interface (no PyTorch headers, so a build takes seconds), placed in
 ``sentinel_tpu_torch/build/`` (git-ignored) under a name that carries a hash
-of the source and the flags, so an edited source is rebuilt rather than a
-stale library loaded. Nothing here runs at import time: the CPU hosts that
-run the tests have no ``nvcc``.
+of the source, the shared ``csrc/*.cuh`` headers and the flags, so an edited
+source is rebuilt rather than a stale library loaded. Nothing here runs at
+import time: the CPU hosts that run the tests have no ``nvcc``.
 
 Flags: ``-gencode arch=compute_90a,code=sm_90a`` (Hopper), ``-O3`` and
 ``--fmad=false``: the kernels are held bitwise against the reference, whose
@@ -54,6 +54,9 @@ def nvcc_path() -> str:
 
 def _target(name: str) -> Path:
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    # the shared headers too: an edited header rebuilds its includers
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        src += header.read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 

@@ -41,6 +41,7 @@ from sentinel_tpu_torch.engine.state import (
     N_CLUSTER_EVENTS,
     flow_spec,
 )
+from sentinel_tpu_torch.ops._launch import check
 from sentinel_tpu_torch.stats import window as W
 
 # the kernel keeps the window starts of one ring in shared memory
@@ -300,18 +301,7 @@ def _kernel_lib():
 
 
 def _check(name, t, dtype, shape, device):
-    if not isinstance(t, torch.Tensor):
-        raise TypeError(f"decide_rows: {name} must be a tensor")
-    if t.device != device:
-        raise ValueError(f"decide_rows: {name} is on {t.device}, not {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"decide_rows: {name} is {t.dtype}, not {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(
-            f"decide_rows: {name} has shape {tuple(t.shape)}, not {shape}"
-        )
-    if not t.is_contiguous():
-        raise ValueError(f"decide_rows: {name} must be contiguous")
+    check("decide_rows", name, t, dtype, shape, device)
 
 
 def decide_rows(

@@ -138,9 +138,12 @@ def _seed_outcomes(rng, jstate, now):
     ))
 
 
-def _run_stream(seed, uniform, grouped, breakers, core, steps=8):
+def _run_stream(seed, uniform, grouped, breakers, core, steps=8,
+                prefix_impl="auto"):
     rng = np.random.default_rng(seed)
     jtable, ttable = _tables(breakers)
+    jcfg = JCFG._replace(prefix_impl=prefix_impl)
+    cfg = CFG._replace(prefix_impl=prefix_impl)
     jst = j_make_state(JCFG)
     if breakers:
         jst = _seed_outcomes(rng, jst, 10_000)
@@ -149,13 +152,13 @@ def _run_stream(seed, uniform, grouped, breakers, core, steps=8):
     for i, (now, (slots, acq, prio)) in enumerate(
         _stream(rng, steps, uniform, grouped)
     ):
-        jb = j_make_batch(JCFG, slots, acq, prio)
-        tb = D.make_batch(CFG, slots, acq, prio)
+        jb = j_make_batch(jcfg, slots, acq, prio)
+        tb = D.make_batch(cfg, slots, acq, prio)
         for leaf_j, leaf_t in zip(jb, tb):
             np.testing.assert_array_equal(leaf_j, leaf_t)
-        jst, jv = j_decide(JCFG, jst, jtable, jb, now, grouped=grouped,
+        jst, jv = j_decide(jcfg, jst, jtable, jb, now, grouped=grouped,
                            uniform=uniform)
-        tst, tv = core(CFG, tst, ttable, tb, now, grouped=grouped,
+        tst, tv = core(cfg, tst, ttable, tb, now, grouped=grouped,
                        uniform=uniform)
         label = f"seed={seed} step={i}"
         assert_verdicts_equal(jv, tv, label)
@@ -172,6 +175,14 @@ def _run_stream(seed, uniform, grouped, breakers, core, steps=8):
 )
 def test_decide_core_stream_parity(seed, uniform, grouped):
     _run_stream(seed, uniform, grouped, breakers=False, core=D._decide_core)
+
+
+@pytest.mark.parametrize("seed", range(2))
+def test_ungrouped_pallas_prefix_parity(seed):
+    """prefix_impl="pallas" on both sides: the reference's Pallas prefix
+    kernel (interpret mode) and the port's (its plain version on CPU)."""
+    _run_stream(seed + 70, False, False, breakers=seed == 1,
+                core=D._decide_core, steps=6, prefix_impl="pallas")
 
 
 @pytest.mark.parametrize("seed", range(2))

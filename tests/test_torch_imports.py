@@ -26,8 +26,10 @@ def _modules():
 
 def test_port_modules_import_without_jax():
     names = _modules()
-    assert "sentinel_tpu_torch.ops.decide_cuda" in names
-    assert "sentinel_tpu_torch.cluster.token_service" in names
+    for mod in ("ops.decide_cuda", "ops.cms_cuda", "ops.salsa_cuda",
+                "ops.prefix_cuda", "engine.param", "sketch", "sketch.salsa",
+                "sketch.slim", "cluster.token_service"):
+        assert f"sentinel_tpu_torch.{mod}" in names, mod
     code = (
         "import importlib, sys\n"
         f"sys.path.insert(0, {REPO!r})\n"
@@ -57,6 +59,7 @@ def _port_sources():
                     if f.endswith(".py"))
     yield os.path.join(REPO, "chip_smoke.py")
     yield os.path.join(REPO, "tests", "torch_kernel_check.py")
+    yield os.path.join(REPO, "tests", "torch_param_check.py")
 
 
 def test_port_sources_never_name_jax():

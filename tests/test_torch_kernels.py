@@ -1,4 +1,5 @@
-"""The CUDA decide kernel against its plain PyTorch version.
+"""The CUDA kernels (decide, count-min, SALSA, segment prefix) against their
+plain PyTorch versions.
 
 Tests marked ``gpu`` need an NVIDIA card and ``nvcc``; they skip on hosts
 without one (the check runs inside a fixture, never at import). On the card,
@@ -13,9 +14,19 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from sentinel_tpu_torch.engine import EngineConfig, build_rule_table  # noqa: E402
+from sentinel_tpu_torch.engine.param import (  # noqa: E402
+    ParamConfig,
+    make_param_state,
+)
 from sentinel_tpu_torch.engine.state import make_state  # noqa: E402
-from sentinel_tpu_torch.ops import decide_cuda  # noqa: E402
+from sentinel_tpu_torch.ops import (  # noqa: E402
+    cms_cuda,
+    decide_cuda,
+    prefix_cuda,
+    salsa_cuda,
+)
 import torch_kernel_check as DC  # noqa: E402
+import torch_param_check as PC  # noqa: E402
 
 
 @pytest.fixture
@@ -108,3 +119,76 @@ def test_zipf_and_batches_are_seeded():
     slots = batch.flow_slot[:200]
     assert np.all(slots[:-1] <= slots[1:]) and (slots == -1).sum() == 5
     assert batch.valid.sum() == 200
+
+
+PARAM_LAUNCHES = {"cms": (cms_cuda.LAUNCHES, "cms_decide_update"),
+                  "salsa": (salsa_cuda.LAUNCHES, "salsa_decide_update")}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N", [8, 300, 2048])
+@pytest.mark.parametrize("sketch", ["cms", "salsa"])
+def test_param_kernel_matches_plain(cuda, sketch, N):
+    cfg = ParamConfig(sketch=sketch)
+    counter, name = PARAM_LAUNCHES[sketch]
+    before = counter[name]
+    batches, nows = PC.kernel_batches(cfg, N, seed=N)
+    r = PC.check_param_steps(cfg, make_param_state(cfg, device=cuda),
+                             batches, nows)
+    torch.cuda.synchronize()
+    assert not r.mismatches, r.mismatches[:10]
+    assert r.max_abs_err == 0.0
+    assert counter[name] - before == len(nows)
+    assert r.reached == set(PC.coverage_for(sketch)), r.reached
+
+
+@pytest.mark.gpu
+def test_param_wrappers_reject_bad_inputs(cuda):
+    cfg = ParamConfig(max_param_rules=8, width=64)
+    st = make_param_state(cfg, device=cuda)
+    cols = PC.to_device(PC.kernel_batches(cfg, 16, seed=0)[0][0], cuda)
+    args = [cols[k] for k in ("rule_slot", "idx", "acquire", "threshold",
+                              "valid")]
+    bad = list(args)
+    bad[2] = bad[2].to(torch.int64)
+    with pytest.raises(TypeError):
+        cms_cuda.cms_decide_update(st.counts, st.starts, *bad, 1000, 500)
+    bad = list(args)
+    bad[3] = bad[3].cpu()
+    with pytest.raises(ValueError):
+        cms_cuda.cms_decide_update(st.counts, st.starts, *bad, 1000, 500)
+    with pytest.raises(TypeError):  # a count-min plane is not SALSA's
+        salsa_cuda.salsa_decide_update(st.counts, st.starts, st.merges,
+                                       *args, 1000, 500)
+    with pytest.raises(ValueError):
+        prefix_cuda.segment_prefix(args[0][::2], args[3][::2])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 300, 5000])
+def test_prefix_kernel_matches_plain(cuda, n):
+    rng = np.random.default_rng(n)
+    keys = torch.as_tensor(DC.ZipfIds(4096)(rng, n).astype(np.int32),
+                           device=cuda)
+    contrib = torch.as_tensor(rng.integers(0, 4, n).astype(np.float32),
+                              device=cuda)
+    before = prefix_cuda.LAUNCHES["segment_prefix"]
+    got = prefix_cuda.segment_prefix(keys, contrib)
+    torch.cuda.synchronize()
+    assert torch.equal(got, prefix_cuda.segment_prefix_plain(keys, contrib))
+    assert prefix_cuda.LAUNCHES["segment_prefix"] - before == 1
+
+
+def test_param_batches_are_seeded_and_shaped():
+    cfg = ParamConfig(max_param_rules=16, width=64, sketch="salsa")
+    a, nows = PC.kernel_batches(cfg, 64, seed=4)
+    b, _ = PC.kernel_batches(cfg, 64, seed=4)
+    assert nows[-1] - nows[0] > 2 * cfg.interval_ms
+    for x, y in zip(a, b):
+        for k in x:
+            np.testing.assert_array_equal(x[k], y[k])
+    cols = a[0]
+    assert cols["idx"].shape == (64, cfg.depth)
+    assert cols["idx"].max() < cfg.cell_width and cols["idx"].min() >= 0
+    assert (~cols["valid"]).any() and (cols["rule_slot"] < 0).any()
+    assert int(cols["acquire"].sum()) < 2**24  # the prefix precondition

@@ -1,5 +1,6 @@
 """The port's segment prefixes and batch-axis scans against the reference
-(``sentinel_tpu.engine.prefix`` and ``sentinel_tpu.ops.scan_mm``)."""
+(``sentinel_tpu.engine.prefix``, ``sentinel_tpu.ops.prefix_pallas`` and
+``sentinel_tpu.ops.scan_mm``)."""
 
 import numpy as np
 import pytest
@@ -10,9 +11,10 @@ import jax.numpy as jnp  # noqa: E402
 
 from sentinel_tpu.engine.prefix import segment_prefix_builder as j_builder  # noqa: E402
 from sentinel_tpu.ops import scan_mm  # noqa: E402
+from sentinel_tpu.ops.prefix_pallas import segment_prefix_pallas  # noqa: E402
 
 from sentinel_tpu_torch.engine.prefix import segment_prefix_builder  # noqa: E402
-from sentinel_tpu_torch.ops import scan  # noqa: E402
+from sentinel_tpu_torch.ops import prefix_cuda, scan  # noqa: E402
 from torch_parity import assert_arrays_equal  # noqa: E402
 
 
@@ -43,10 +45,34 @@ def test_segment_prefix_parity(impl, n):
 
 
 def test_prefix_pallas_not_ported_yet():
-    with pytest.raises(NotImplementedError):
-        segment_prefix_builder(torch.zeros(8, dtype=torch.int32), "pallas")
+    """"pallas" selects the ported kernel's wrapper (its plain version on
+    CPU tensors, which launches nothing); unknown names raise."""
+    keys = torch.tensor([3, 1, 3, 3, 1], dtype=torch.int32)
+    before = dict(prefix_cuda.LAUNCHES)
+    got = segment_prefix_builder(keys, "pallas")(torch.tensor(
+        [1.0, 2.0, 4.0, 8.0, 16.0]))
+    assert got.tolist() == [0.0, 0.0, 1.0, 5.0, 2.0]
+    assert prefix_cuda.LAUNCHES == before
     with pytest.raises(ValueError):
         segment_prefix_builder(torch.zeros(8, dtype=torch.int32), "nope")
+
+
+@pytest.mark.parametrize("n", [1, 7, 256, 700, 2100])
+def test_prefix_pallas_matches_interpret_kernel(n):
+    """The cases of tests/test_ops_pallas.py: the reference's tiled kernel
+    in interpret mode against the port's, on integer contributions."""
+    rng = np.random.default_rng(n)
+    keys = rng.integers(0, max(1, n // 3), size=n).astype(np.int32)
+    contrib = rng.integers(0, 5, size=n).astype(np.float32)
+    want = segment_prefix_pallas(jnp.asarray(keys), jnp.asarray(contrib),
+                                 interpret=True)
+    got = segment_prefix_builder(torch.as_tensor(keys), "pallas")(
+        torch.as_tensor(contrib))
+    assert_arrays_equal(want, got, f"n={n}")
+    assert_arrays_equal(
+        want, prefix_cuda.segment_prefix_plain(torch.as_tensor(keys),
+                                               torch.as_tensor(contrib)),
+        f"plain n={n}")
 
 
 @pytest.mark.parametrize("shape", [(1,), (127,), (128,), (300,), (300, 4)])
