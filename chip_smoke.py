@@ -11,20 +11,35 @@ Builds the port's CUDA kernels from ``sentinel_tpu_torch/csrc`` (one
    N = 64 / 1024 / 16384 rows, uniform and mixed acquires, over steps that
    cross a namespace guard and span two seconds, so that the 1 s ring wraps
    onto written columns (rolled and masked) and reads expiring buckets
-   (``tests/torch_kernel_check.py`` holds the workloads);
-2. times the kernel and the plain version at those N with CUDA events;
+   (``tests/torch_kernel_check.py`` holds the workloads); then on batches
+   shaped against the kernel's grid of segment-owning blocks (heads at and
+   beside the blocks' bounds, blocks without a head, segments longer than a
+   tile and than a block's range, one flow, a flow per row, rows without a
+   rule beside slot 0, a padded tail) at N = 64 / 1025 / 16383 / 16384;
+   every step is launched 10 times from the same input state and every
+   repeat must be bitwise equal;
+2. times the kernel and the plain version at those N with CUDA events, and
+   at N=16384 also on the one-flow and the flow-per-row batch; prints the
+   grid;
 3. drives the service path at full size: ``DefaultTokenService`` with 100k
    flow rules (a shaped subset among them), warmed up, answering
    bounded-Zipf (alpha 1.1) pulls of 64, 1024, 16384 and 65536 rows (the
    last takes the fused depth-4 path) over more than three seconds of
    engine clock; its verdicts must equal those of a second service on the
    torch-ops pipeline, fed the same pulls at the same engine clock, and the
-   kernel's launch count must rise by exactly one per device step;
+   kernel's launch count must rise by exactly one per device step; after
+   every other phase, five more 16384-row pulls of that service under
+   ``torch.profiler`` give the device time of a pull and the decide
+   kernel's share of it (last, so that the profiler's lasting cost on the
+   host's launches enters no other phase's times);
 4. holds the CMS and SALSA param kernels against their plain versions,
    bitwise, at the service's default sketch (256 rules, depth 2, width
    2048, two 500 ms buckets) and N = 8 / 64 / 1024 / 4096, over seven steps
    spanning 2.7 s that roll written buckets, mask aged ones, reject rows by
-   the in-batch prefix alone and merge SALSA pairs
+   the in-batch prefix alone and merge SALSA pairs, with admitted rows on
+   both cells of one unmerged pair (staying unmerged, and merged by their
+   summed adds), on both indices of a merged pair, and acquiring 0; every
+   SALSA pair no admitted row addressed must keep its bits
    (``tests/torch_param_check.py`` holds the workloads), and times them;
 5. drives the hot-param path: per sketch, a service on the kernel and one on
    the torch-ops core answer the same ``request_params_token`` stream (256
@@ -56,6 +71,8 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 F, NS, B = 100_000, 64, 10
 SIZES = (64, 1024, 16384)  # the serve ladder's ends and middle
+SHAPED_SIZES = (64, 1025, 16383, 16384)  # batches shaped against the grid
+REPEATS = 10  # launches per parity step, all bitwise equal
 PULLS = (64, 1024, 16384, 65536)  # the last: 4 full frames, fused depth 4
 FUSED_DEPTH = 4
 # engine-clock ms between served pulls, cycled: same bucket, a roll, a
@@ -135,6 +152,7 @@ def phase_parity(torch, dev, cfg, table, state):
     import torch_kernel_check as DC
 
     from sentinel_tpu_torch.engine.decide import TokenStatus
+    from sentinel_tpu_torch.ops import decide_cuda as K
 
     rng = np.random.default_rng(2024)
     zipf = DC.ZipfIds(F, alpha=1.1)
@@ -150,7 +168,7 @@ def phase_parity(torch, dev, cfg, table, state):
                                         unknown=max(1, n // 100))
                        for _ in nows]
             err, bad, _, statuses, reached = DC.check_steps(
-                c, table, state, batches, nows, uniform)
+                c, table, state, batches, nows, uniform, repeats=REPEATS)
             torch.cuda.synchronize()
             if bad:
                 raise AssertionError(
@@ -170,9 +188,39 @@ def phase_parity(torch, dev, cfg, table, state):
             if not seen[int(TokenStatus.TOO_MANY_REQUEST)]:
                 raise AssertionError(f"N={n}: the namespace guard never "
                                      f"crossed: {hist}")
-            log(f"parity N={n} uniform={uniform}: {len(nows)} steps "
-                f"bitwise equal, ring wrapped onto written columns; "
-                f"verdicts {hist}")
+            log(f"parity N={n} uniform={uniform}: {len(nows)} steps x "
+                f"{REPEATS} launches bitwise equal, ring wrapped onto "
+                f"written columns; verdicts {hist}")
+    for n in SHAPED_SIZES:
+        blocks, chunk = K.launch_grid(n)
+        c = cfg._replace(batch_size=n)
+        for uniform in (True, False):
+            named = DC.adversarial_batches(c, rng, chunk, uniform, F)
+            nows = [40_040 + dt for dt in DC.STEP_OFFSETS_MS]
+            shapes = set()
+            for _, batch in named:
+                shapes |= DC.shape_coverage(c, batch, chunk, F)
+            missing = DC.required_shapes(n) - shapes
+            if missing:
+                raise AssertionError(
+                    f"N={n} uniform={uniform}: the shaped batches never "
+                    f"reached {sorted(missing)}")
+            err, bad, _, _, reached = DC.check_steps(
+                c, table, state, [b for _, b in named], nows, uniform,
+                repeats=REPEATS)
+            torch.cuda.synchronize()
+            if bad:
+                raise AssertionError(
+                    f"kernel != plain on shaped batches at N={n} "
+                    f"uniform={uniform}: {bad[:8]}")
+            if "rolled_written_column" not in reached:
+                raise AssertionError(f"N={n}: no shaped step rolled a "
+                                     f"written column")
+            max_err = max(max_err, err)
+            checked += len(nows)
+            log(f"parity shaped N={n} uniform={uniform} grid {blocks} x "
+                f"{chunk} rows: {[name for name, _ in named]} x {REPEATS} "
+                f"launches bitwise equal; reached {sorted(shapes)}")
     return max_err, checked
 
 
@@ -185,11 +233,9 @@ def phase_timing(torch, dev, cfg, table, state):
 
     rng = np.random.default_rng(7)
     zipf = DC.ZipfIds(F, alpha=1.1)
-    rows = {}
-    for n in SIZES:
+
+    def time_batch(label, n, batch):
         c = cfg._replace(batch_size=n)
-        batch = DC.grouped_batch(c, rng, zipf, n, uniform=True,
-                                 unknown=max(1, n // 100))
         args = DC.kernel_args(c, table, clone_state(state), batch, 50_010,
                               uniform=True)
         cols = args[6]
@@ -204,13 +250,32 @@ def phase_timing(torch, dev, cfg, table, state):
         ops = 60 * n  # per-row admission arithmetic, a few dozen flops
         bound_ms = max(nbytes / PEAK_BYTES_PER_S,
                        ops / PEAK_F32_OPS_PER_S) * 1e3
-        rows[n] = dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                       wall_ms=kernel_wall, bytes=nbytes,
-                       rows_touched=touched)
-        log(f"timing N={n}: kernel {kernel_ms:.4f} ms on the device "
+        blocks, chunk = K.launch_grid(n)
+        longest = int(np.bincount(slots).max())
+        log(f"timing {label} N={n}: kernel {kernel_ms:.4f} ms on the device "
             f"({kernel_wall:.4f} ms a call with host launch), plain "
             f"{plain_ms:.4f} ms, bound {bound_ms:.6f} ms "
-            f"({nbytes} B, {touched} distinct flows)")
+            f"({nbytes} B, {touched} distinct flows, longest segment "
+            f"{longest} rows); grid {blocks} blocks, {chunk} nominal rows a "
+            f"block")
+        return dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                    wall_ms=kernel_wall, bytes=nbytes,
+                    rows_touched=touched, longest_segment=longest,
+                    blocks=blocks)
+
+    rows = {}
+    for n in SIZES:
+        c = cfg._replace(batch_size=n)
+        batch = DC.grouped_batch(c, rng, zipf, n, uniform=True,
+                                 unknown=max(1, n // 100))
+        rows[n] = time_batch("zipf", n, batch)
+    # the two extremes of segment length at the largest N
+    n = SIZES[-1]
+    c = cfg._replace(batch_size=n)
+    for label, heads in (("one_flow", np.zeros(n, bool)),
+                         ("all_distinct", np.ones(n, bool))):
+        batch = DC.batch_from_heads(c, rng, heads, True, F)
+        rows[n][label] = time_batch(label, n, batch)
     return rows
 
 
@@ -313,22 +378,69 @@ def phase_service(torch, dev):
             log(f"service n={n}: p50 {stats[n]['p50_ms']:.3f} ms, p99 "
                 f"{stats[n]['p99_ms']:.3f} ms, "
                 f"{stats[n]['decisions_per_s']:.0f} decisions/s")
-        return launches, stats
+
+        def profiled_pulls():
+            """Left to the end of the run: once the profiler has traced a
+            process, its later launches cost the host more."""
+            before = clock.set_clock(mc)
+            try:
+                return pull_device_time(torch, svc, mc, zipf, rng, SIZES[-1])
+            finally:
+                clock.set_clock(before)
+
+        return launches, stats, profiled_pulls
     finally:
         clock.set_clock(prev)
 
 
+def pull_device_time(torch, svc, mc, zipf, rng, n: int, pulls: int = 5):
+    """Device time of one served ``n``-row pull and the decide kernel's
+    share of it, from a ``torch.profiler`` trace of ``pulls`` pulls (device
+    rows only, each counted once). The profiler slows the host, so the wall
+    time of these pulls is not reported."""
+    from torch.profiler import ProfilerActivity, profile
+
+    batches = [zipf(rng, n) for _ in range(pulls)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for ids in batches:
+            svc.request_batch_arrays(ids)
+            mc.advance(7)
+        torch.cuda.synchronize()
+    total_us = kernel_us = 0.0
+    for evt in prof.key_averages():
+        if str(evt.device_type).endswith("CUDA"):
+            total_us += evt.self_device_time_total
+            if "decide_kernel" in evt.key or "roll_kernel" in evt.key:
+                kernel_us += evt.self_device_time_total
+    if total_us <= 0.0 or kernel_us <= 0.0:
+        raise AssertionError(
+            f"service n={n}: the profiler showed {total_us} us of device "
+            f"time over {pulls} pulls, {kernel_us} us of it in the decide "
+            f"kernel's launches")
+    out = dict(device_ms_a_pull=total_us / pulls / 1e3,
+               decide_kernel_ms_a_pull=kernel_us / pulls / 1e3)
+    log(f"service n={n}: device busy {out['device_ms_a_pull']:.4f} ms a "
+        f"pull over {pulls} profiled pulls, of which the decide kernel's two "
+        f"launches {out['decide_kernel_ms_a_pull']:.4f} ms "
+        f"({100 * kernel_us / total_us:.1f}%)")
+    return out
+
+
 def param_bytes(sketch: str, n: int, depth: int, n_buckets: int,
-                admitted: int, plane_bytes: int) -> int:
+                admitted: int, touched_pairs: int) -> int:
     """Bytes one param step must move: the [N] columns (slot, D indices,
     acquire, threshold, valid in; admit, estimate out), D x B gathered cells
     (a SALSA cell is read as its 4-byte pair), and the admitted rows' D cell
-    writes for count-min, or the whole current plane read and written for
-    SALSA. The timed steps do not roll (no 4 MiB zeroing)."""
+    writes for count-min, or each touched pair's 4 bytes read and written
+    for SALSA (the function re-encodes a whole plane only in name: every
+    other pair keeps its bits). The timed steps do not roll (no 4 MiB
+    zeroing)."""
     cols = n * (4 + 4 * depth + 4 + 4 + 1 + 1 + 4)
     gathered = n * depth * n_buckets * 4
     if sketch == "salsa":
-        return cols + gathered + 2 * plane_bytes
+        return cols + gathered + touched_pairs * 2 * 4
     return cols + gathered + admitted * depth * 4
 
 
@@ -392,9 +504,13 @@ def phase_param_timing(torch, dev):
                                 50, torch)
             plain_ms = cuda_ms(lambda: plain(st_p, c, now, cfg.bucket_ms),
                                5, torch)
-            plane = st.counts[:, 0].numel() * st.counts.element_size()
+            rows_in = torch.nonzero(admit)[:, 0]
+            pair_ids = ((c["rule_slot"][rows_in].long()[:, None] * cfg.depth
+                         + torch.arange(cfg.depth, device=dev)[None, :])
+                        * cfg.cell_width + c["idx"][rows_in].long() // 2)
+            touched = int(torch.unique(pair_ids).numel())
             nbytes = param_bytes(sketch, n, cfg.depth, cfg.n_buckets,
-                                 admitted, plane)
+                                 admitted, touched)
             ops = 40 * n  # a few dozen integer and float ops a row
             bound_ms = max(nbytes / PEAK_BYTES_PER_S,
                            ops / PEAK_F32_OPS_PER_S) * 1e3
@@ -403,6 +519,9 @@ def phase_param_timing(torch, dev):
             log(f"timing {sketch} N={n}: kernel {kernel_ms:.4f} ms, plain "
                 f"{plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({nbytes} B)")
         out[sketch] = rows
+    for n in PARAM_SIZES:
+        ratio = out["salsa"][n]["ms"] / out["cms"][n]["ms"]
+        log(f"timing N={n}: salsa / cms kernel time {ratio:.3f}")
     return out
 
 
@@ -619,12 +738,13 @@ def main() -> int:
 
     max_err, checked = phase_parity(torch, dev, cfg, table, state)
     timing = phase_timing(torch, dev, cfg, table, state)
-    launches, service = phase_service(torch, dev)
+    launches, service, profiled_pulls = phase_service(torch, dev)
     param_parity = phase_param_parity(torch, dev)
     param_timing = phase_param_timing(torch, dev)
     param_service = phase_param_service(torch, dev)
     prefix_launches, prefix_err, prefix_timing = phase_prefix(
         torch, dev, cfg, table, state)
+    service[SIZES[-1]].update(profiled_pulls())
 
     ident = gpu_identity()
     main_n = SIZES[-1]

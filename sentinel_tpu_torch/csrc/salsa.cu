@@ -10,30 +10,53 @@
 //
 //   1. the roll (launch 1, param::roll_kernel): zeroed cells are unmerged
 //      zeros, so the roll clears merge state with the counts;
-//   2. per row: the estimate over decoded gathers (a merged pair reads its
-//      joint value at either cell), the in-batch prefix admission, and the
-//      admitted adds, routed to the even cell when the pair is merged and
-//      summed by int32 atomics into a decoded delta of the current plane
-//      (launch 2, salsa_decide_kernel);
-//   3. the re-encode of the WHOLE current plane, as the reference does every
-//      step: decode, add the delta, merge an unmerged pair with a side above
-//      SAT (taking the max of the two, clamped to MERGE_CEIL), encode, and
-//      count each newly merged pair into merges[slot] (launch 3,
-//      salsa_encode_kernel). All arithmetic is int32; cells are cast to
-//      int16 only on store.
+//   2. per row (launch 2, salsa_decide_kernel): the estimate over decoded
+//      gathers (a merged pair reads its joint value at either cell), the
+//      in-batch prefix admission, and the update of the pairs the admitted
+//      rows address: their adds, routed to the even cell when the pair is
+//      merged, are summed per pair, and each touched pair is decoded, added
+//      to, merged when an unmerged side rises above SAT (taking the max of
+//      the two, clamped to MERGE_CEIL), encoded and stored by exactly one
+//      thread, which counts a newly merged pair into merges[slot]. All
+//      arithmetic is int32; cells are cast to int16 only on store.
 //
-// What bounds it. Memory traffic: the whole-plane re-encode reads and
-// writes the P x D x 2W int16 current plane (4 MiB each way at the service's
-// default P=256, D=2, W=2048) every step, plus the decoded int32 delta it
-// reads; per row, D x B gathered pairs. Launch 3 is a grid-stride pass of
-// one 32-bit word (one pair) a thread, coalesced.
+// The reference re-encodes the WHOLE current plane every step. That pass is
+// the identity on every pair that received no add, given this
+// precondition: the plane was produced by this encoder (from zeros, through
+// rolls and updates). An unmerged pair then has both sides <= SAT (else it
+// would have merged), a merged pair's low cell lies in [0, CAP) and its
+// value is <= MERGE_CEIL, and zeroed cells encode to zeros. Every producer
+// of a plane in the reference keeps it: sketch/salsa.py::encode_plane, the
+// Pallas kernel, and the MOVE import sketch/__init__.py::fold_param_sums,
+// which itself re-encodes only the rows it touched. A plane built by hand
+// with an unmerged side above SAT would be merged by the reference's pass
+// and is left alone here.
+//
+// What bounds it. Memory traffic: per row D x B gathered pairs and a few
+// [N] columns, and per touched pair 4 bytes read and written
+// (chip_smoke.py::param_bytes); the arithmetic is the prefix admission.
+// Work after the admission is O(N * D).
 //
 // Design. As csrc/cms.cu for launches 1 and 2 (one block, O(N^2) prefix a
-// pass). The TPU kernel's lane rolls that pair cells on full-width vectors
-// are a Mosaic idiom; here a thread owns a pair as one 32-bit word
-// (little-endian: the even cell is the low half). Floor division and modulo
-// by CAP (a power of two) are an arithmetic shift and a mask, which match
-// the reference's floor semantics for any sign.
+// pass). Summing the adds of one pair before its single encode uses `delta`,
+// an int32 [P, D, 2W] buffer that is ALL ZERO between calls: admitted rows
+// atomicAdd their routed acquire into it; after a barrier each admitted
+// (row, lane) takes its pair's two sums with one 64-bit atomicExch(..., 0)
+// (a pair is 8-byte aligned). The one thread that gets a non-zero pair
+// encodes it; the others, and pairs whose adds sum to zero, skip (the
+// encode is then the identity). So the buffer is zero again when the launch
+// ends, with no memset and no whole-plane pass; the wrapper allocates it
+// once per sketch shape. Routing reads the merge flags before the barrier
+// and the stores come after it, so it sees the pre-update flags the
+// reference routes by. The TPU kernel's lane rolls that pair cells on
+// full-width vectors are a Mosaic idiom; here a thread owns a pair as one
+// 32-bit word (little-endian: the even cell is the low half). Floor division
+// and modulo by CAP (a power of two) are an arithmetic shift and a mask,
+// which match the reference's floor semantics for any sign.
+// Rows whose slot or index lies outside the sketch are not live and
+// estimate 0 (the reference's XLA core clamps such gathers and drops such
+// scatters lane by lane, its Pallas kernel estimates 0 and still adds the
+// lanes that are in range; its callers never pass such rows).
 
 #include "param_common.cuh"
 
@@ -45,9 +68,10 @@ constexpr int SAT = 1 << 14;
 constexpr int MERGE_CEIL = CAP * 32767 - 1;
 
 __global__ void __launch_bounds__(param::THREADS, 1)
-    salsa_decide_kernel(param::Rows r, const int16_t* counts, int32_t* starts,
-                        int32_t* delta, int P, int B, int D, int C, int now,
-                        int cur, int cur_start, int interval_ms) {
+    salsa_decide_kernel(param::Rows r, int16_t* counts, int32_t* starts,
+                        int32_t* merges, int32_t* delta, int P, int B, int D,
+                        int C, int now, int cur, int cur_start,
+                        int interval_ms) {
   __shared__ param::Smem sm;
   param::load_ok(sm, starts, B, now, cur, cur_start, interval_ms);
 
@@ -82,10 +106,10 @@ __global__ void __launch_bounds__(param::THREADS, 1)
 
   param::admit_passes(r, sm);
 
-  // the current plane is not written in this launch, so its merge flags
-  // are the pre-update ones the reference routes by
+  // Sum the admitted adds per cell. The current plane is not stored to
+  // before the barrier, so its merge flags are the pre-update ones.
   for (int i = threadIdx.x; i < r.N; i += blockDim.x) {
-    if (!r.admit[i]) continue;
+    if (!r.admit[i]) continue;  // admitted rows are live: all in range
     const int safe = r.slot[i];
     const int32_t* ix = r.idx + (long long)i * D;
     for (int d = 0; d < D; ++d) {
@@ -97,41 +121,41 @@ __global__ void __launch_bounds__(param::THREADS, 1)
       atomicAdd(&delta[((long long)safe * D + d) * C + tgt], r.acq[i]);
     }
   }
-  if (threadIdx.x == 0) starts[cur] = cur_start;
-}
-
-// One thread a pair (W pairs per lane): decode, add the delta, merge on
-// saturation, encode.
-__global__ void salsa_encode_kernel(uint32_t* words, const int2* delta,
-                                    int32_t* merges, int P, int B, int D,
-                                    int W, int cur) {
-  const long long per_slot = (long long)D * W;
-  const long long total = (long long)P * per_slot;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long q = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       q < total; q += stride) {
-    const long long p = q / per_slot;
-    const long long rem = q - p * per_slot;  // d * W + w
-    const long long d = rem / W;
-    const long long w = rem - d * W;
-    uint32_t* word = words + ((p * B + cur) * D + d) * W + w;
-    const uint32_t v = *word;
-    const int lo = (int)(int16_t)(uint16_t)(v & 0xffffu);
-    const int hi = (int)(int16_t)(uint16_t)(v >> 16);
-    const int2 dl = delta[q];
-    const bool merged = hi < 0;
-    const int ev = (merged ? lo + CAP * (-hi - 1) : lo) + dl.x;
-    const int od = (merged ? 0 : hi) + dl.y;
-    const bool newly = !merged && (ev > SAT || od > SAT);
-    const bool m2 = merged || newly;
-    int val = newly ? max(ev, od) : ev;
-    val = min(val, MERGE_CEIL);
-    const int lo_out = m2 ? (val & (CAP - 1)) : ev;
-    const int hi_out = m2 ? (-(val >> LOGCAP) - 1) : od;
-    *word = (uint32_t)(uint16_t)(int16_t)lo_out |
-            ((uint32_t)(uint16_t)(int16_t)hi_out << 16);
-    if (newly) atomicAdd(&merges[p], 1);
+  __syncthreads();
+  // Each touched pair: one thread takes its sums (leaving zeros), decodes,
+  // adds, merges on saturation, encodes and stores.
+  for (int i = threadIdx.x; i < r.N; i += blockDim.x) {
+    if (!r.admit[i]) continue;
+    const int safe = r.slot[i];
+    const int32_t* ix = r.idx + (long long)i * D;
+    for (int d = 0; d < D; ++d) {
+      const int pair = ix[d] & ~1;
+      unsigned long long* dp = reinterpret_cast<unsigned long long*>(
+          &delta[((long long)safe * D + d) * C + pair]);
+      const unsigned long long sums = atomicExch(dp, 0ull);
+      if (sums == 0ull) continue;
+      const int dl_ev = (int)(uint32_t)(sums & 0xffffffffull);
+      const int dl_od = (int)(uint32_t)(sums >> 32);
+      uint32_t* word = reinterpret_cast<uint32_t*>(
+          counts + (((long long)safe * B + cur) * D + d) * C + pair);
+      const uint32_t v = *word;
+      const int lo = (int)(int16_t)(uint16_t)(v & 0xffffu);
+      const int hi = (int)(int16_t)(uint16_t)(v >> 16);
+      const bool merged = hi < 0;
+      const int ev = (merged ? lo + CAP * (-hi - 1) : lo) + dl_ev;
+      const int od = (merged ? 0 : hi) + dl_od;
+      const bool newly = !merged && (ev > SAT || od > SAT);
+      const bool m2 = merged || newly;
+      int val = newly ? max(ev, od) : ev;
+      val = min(val, MERGE_CEIL);
+      const int lo_out = m2 ? (val & (CAP - 1)) : ev;
+      const int hi_out = m2 ? (-(val >> LOGCAP) - 1) : od;
+      *word = (uint32_t)(uint16_t)(int16_t)lo_out |
+              ((uint32_t)(uint16_t)(int16_t)hi_out << 16);
+      if (newly) atomicAdd(&merges[safe], 1);
+    }
   }
+  if (threadIdx.x == 0) starts[cur] = cur_start;
 }
 
 }  // namespace
@@ -155,13 +179,7 @@ extern "C" int sentinel_salsa_decide(
                 admit, est,   (uint32_t*)work_key,
                 work_flags, work_flags + N, work_flags + 2 * (long long)N};
   salsa_decide_kernel<<<1, param::THREADS, 0, st>>>(
-      r, counts, starts, delta, P, B, D, 2 * W, now, cur, cur_start,
+      r, counts, starts, merges, delta, P, B, D, 2 * W, now, cur, cur_start,
       interval_ms);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  long long blocks = ((long long)P * D * W + 255) / 256;
-  if (blocks > 132 * 16) blocks = 132 * 16;
-  salsa_encode_kernel<<<(unsigned)blocks, 256, 0, st>>>(
-      (uint32_t*)counts, (const int2*)delta, merges, P, B, D, W, cur);
   return (int)cudaGetLastError();
 }

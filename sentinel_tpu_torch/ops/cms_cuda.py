@@ -185,7 +185,9 @@ def cms_decide_update(
     CPU tensors run :func:`cms_decide_update_plain`. CUDA tensors launch
     the kernel (after checking device, dtype, shape and contiguity) or
     raise. Rows whose slot or cell index lies outside the sketch are not
-    live and estimate 0 on the card (the plain version raises on them)."""
+    live and estimate 0 on the card (the plain version raises on them; the
+    reference's two cores differ from each other there, and its callers
+    never pass such rows)."""
     now = int(now)
     device = counts.device
     if device.type == "cpu":

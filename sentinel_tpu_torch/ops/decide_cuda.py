@@ -10,7 +10,8 @@ Three layers, mirroring the reference:
   one call of :func:`decide_rows`.
 - :func:`decide_rows` — the kernel's wrapper (the reference's
   ``_call_decide_kernel``). On CUDA tensors it launches ``csrc/decide.cu``
-  (a roll launch, then the decide launch) and adds one to
+  (a roll launch, then the decide launch: a grid of blocks that each own
+  whole segments of the grouped batch, :func:`launch_grid`) and adds one to
   ``LAUNCHES["decide_rows"]``; on CPU tensors it runs :func:`decide_rows_plain`.
   It never falls back from the kernel.
 - :func:`decide_rows_plain` — the same function in plain torch ops (the
@@ -49,6 +50,20 @@ MAX_BUCKETS = 64
 
 # kernel launches on CUDA tensors, by wrapper; CPU calls do not count
 LAUNCHES = {"decide_rows": 0}
+
+# The decide launch's grid: at most one block per SM of an H100 (132), each
+# with a nominal range of MIN_CHUNK rows or more. Any grid gives the same
+# result; the kernel's block width is fixed in csrc/decide.cu.
+SM_COUNT = 132
+MIN_CHUNK = 32
+
+
+def launch_grid(n_rows: int) -> tuple:
+    """``(blocks, chunk)`` of the decide launch for a batch of ``n_rows``:
+    block ``b`` owns the segments whose head lies in ``[b * chunk,
+    (b + 1) * chunk)``."""
+    chunk = max(-(-n_rows // SM_COUNT), MIN_CHUNK)
+    return -(-n_rows // chunk), chunk
 
 
 class DecideRows(NamedTuple):
@@ -280,9 +295,14 @@ _C_ARGTYPES = (
     + [ctypes.c_float] * 4  # exceed interval_scale pass_qps_scale occ_ratio
     + [ctypes.c_void_p] * len(ROW_COLUMNS)
     + [ctypes.c_void_p] * len(DecideRows._fields)
-    + [ctypes.c_void_p] * 3  # work_f, work_i, stream
+    + [ctypes.c_void_p] * 2  # work, scratch
+    + [ctypes.c_int] * 2  # blocks chunk
+    + [ctypes.c_void_p]  # stream
 )
-_WORK_PLANES = 6  # csrc/decide.cu: WF_COUNT
+# csrc/decide.cu: PL_COUNT planes of N words for a block that owns more rows
+# than its shared memory holds, and SCRATCH_INTS words from launch 1 to 2
+_WORK_PLANES = 13
+_SCRATCH_INTS = 129
 
 
 def _kernel_lib():
@@ -293,9 +313,13 @@ def _kernel_lib():
     if fn.argtypes is None:
         fn.argtypes = _C_ARGTYPES
         fn.restype = ctypes.c_int
-        lib.sentinel_decide_work_planes.argtypes = []
-        lib.sentinel_decide_work_planes.restype = ctypes.c_int
-        if lib.sentinel_decide_work_planes() != _WORK_PLANES:
+        layout = []
+        for query in (lib.sentinel_decide_work_planes,
+                      lib.sentinel_decide_scratch_ints):
+            query.argtypes = []
+            query.restype = ctypes.c_int
+            layout.append(query())
+        if layout != [_WORK_PLANES, _SCRATCH_INTS]:
             raise RuntimeError("csrc/decide.cu workspace layout changed")
     return fn
 
@@ -351,8 +375,10 @@ def decide_rows(
         tokens_new=empty(torch.float32), do_sync=empty(torch.bool),
         lpt_sched=empty(torch.int32),
     )
-    work_f = torch.empty((_WORK_PLANES, N), dtype=torch.float32, device=device)
-    work_i = torch.empty((N,), dtype=torch.int32, device=device)
+    # one allocation: the spill planes, then the scratch of launch 1
+    work = torch.empty((_WORK_PLANES * N + _SCRATCH_INTS,), dtype=torch.int32,
+                       device=device)
+    blocks, chunk = launch_grid(N)
     sc = _scalars(config, now)
     fn = _kernel_lib()
     stream = torch.cuda.current_stream(device).cuda_stream
@@ -366,13 +392,13 @@ def decide_rows(
         sc["pass_qps_scale"], float(config.max_occupy_ratio),
         *(cols[name].data_ptr() for name, _ in ROW_COLUMNS),
         *(t.data_ptr() for t in out),
-        work_f.data_ptr(), work_i.data_ptr(), stream,
+        work.data_ptr(), work.data_ptr() + 4 * _WORK_PLANES * N,
+        blocks, chunk, stream,
     )
     if err != 0:
         raise RuntimeError(f"decide kernel launch failed: CUDA error {err}")
     LAUNCHES["decide_rows"] += 1
     return out
-
 
 
 def decide_core_kernel(

@@ -4,16 +4,23 @@
 The count-min decide of ``ops/cms_cuda.py`` over the int16 pair encoding
 of :mod:`sentinel_tpu_torch.sketch.salsa`: gathers decode the pair in
 flight, admitted adds to a merged pair are routed to its even cell, and the
-whole current-bucket plane is re-encoded every step with
-merge-on-saturation, counting each newly merged pair into ``merges``.
+current-bucket plane is re-encoded with merge-on-saturation, counting each
+newly merged pair into ``merges``.
 
 - :func:`salsa_decide_update` — the kernel's wrapper. On CUDA tensors it
-  launches ``csrc/salsa.cu`` (roll, decide, re-encode) and adds one to
+  launches ``csrc/salsa.cu`` (a roll launch, then the decide launch, which
+  re-encodes only the pairs the admitted rows address) and adds one to
   ``LAUNCHES["salsa_decide_update"]``; on CPU tensors it runs
   :func:`salsa_decide_update_plain`. It never falls back from the kernel.
 - :func:`salsa_decide_update_plain` — the same function in torch ops, op
-  for op the reference's XLA core (``sketch/salsa.py::salsa_decide_jax``):
-  the port's torch-ops core, the CPU path, and the kernel's yardstick.
+  for op the reference's XLA core (``sketch/salsa.py::salsa_decide_jax``),
+  whole-plane re-encode included: the port's torch-ops core, the CPU path,
+  and the kernel's yardstick.
+
+The kernel and the plain version agree on every plane this encoder produced
+(from zeros, through rolls, updates and imports of reference states): there
+the re-encode is the identity on a pair that received no add. The kernel's
+note in ``csrc/salsa.cu`` states the precondition.
 
 ``counts``, ``starts`` and ``merges`` are updated in place, in the state's
 ``[P, B, D, 2W]`` layout. Any ``N`` is taken (the reference caps at 1024).
@@ -22,7 +29,7 @@ merge-on-saturation, counting each newly merged pair into ``merges``.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -39,6 +46,34 @@ from sentinel_tpu_torch.ops.cms_cuda import (
 from sentinel_tpu_torch.sketch.salsa import CAP, decode_plane, encode_plane
 
 LAUNCHES = {"salsa_decide_update": 0}
+
+# The kernel's per-pair add sums: an int32 [P, D, 2W] buffer (twice the
+# bytes of one int16 plane) that is all zero between calls, because the
+# launch clears every cell it added to. It is kept per device, stream and
+# sketch shape instead of being allocated and cleared every call.
+#
+# Lifetime: made at the first launch for its key, held until the process
+# ends, until MAX_DELTAS newer keys push it out (oldest first), or until a
+# launch for its key returns an error. A fault that shows only after the
+# launch returned is a sticky CUDA error: no later call on that context
+# succeeds, so a buffer it left non-zero is never read again.
+# ParamState does not hold the buffer because its fields are the
+# reference's, one to one (interop, checkpoints).
+MAX_DELTAS = 4
+_DELTAS: dict = {}
+
+
+def persistent_delta(counts: torch.Tensor) -> Optional[torch.Tensor]:
+    """The add-sum buffer the kernel keeps for ``counts``' device, current
+    stream and shape, if a launch has made one: all zero between calls."""
+    if counts.device.type != "cuda":
+        return None
+    return _DELTAS.get(_delta_key(counts))
+
+
+def _delta_key(counts: torch.Tensor) -> tuple:
+    P, _, D, C = counts.shape
+    return (counts.device, stream_of(counts.device), P, D, C)
 
 
 def salsa_decide_update_plain(
@@ -131,7 +166,9 @@ def salsa_decide_update(
     CPU tensors run :func:`salsa_decide_update_plain`. CUDA tensors launch
     the kernel (after checking device, dtype, shape and contiguity) or
     raise. Rows whose slot or cell index lies outside the sketch are not
-    live and estimate 0 on the card (the plain version raises on them)."""
+    live and estimate 0 on the card (the plain version raises on them; the
+    reference's two cores differ from each other there, and its callers
+    never pass such rows)."""
     now = int(now)
     device = counts.device
     if device.type == "cpu":
@@ -156,8 +193,13 @@ def salsa_decide_update(
     est = torch.empty((N,), dtype=torch.int32, device=device)
     work_key = torch.empty((N,), dtype=torch.int32, device=device)
     work_flags = torch.empty((3, N), dtype=torch.uint8, device=device)
-    # the current plane's routed adds, decoded (int32), summed by atomics
-    delta = torch.zeros((P, D, C), dtype=torch.int32, device=device)
+    key = _delta_key(counts)
+    delta = _DELTAS.get(key)
+    if delta is None:
+        while len(_DELTAS) >= MAX_DELTAS:
+            del _DELTAS[next(iter(_DELTAS))]
+        delta = _DELTAS[key] = torch.zeros((P, D, C), dtype=torch.int32,
+                                           device=device)
     err = _kernel_lib()(
         counts.data_ptr(), starts.data_ptr(), merges.data_ptr(),
         P, B, D, C // 2,
@@ -167,6 +209,8 @@ def salsa_decide_update(
         admit.data_ptr(), est.data_ptr(), work_key.data_ptr(),
         work_flags.data_ptr(), delta.data_ptr(), stream_of(device),
     )
+    if err != 0:
+        _DELTAS.pop(key, None)  # it may no longer be all zero
     raise_on(fn_name, err)
     LAUNCHES[fn_name] += 1
     return admit, est

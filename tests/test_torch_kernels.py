@@ -74,6 +74,23 @@ def test_kernel_matches_plain(cuda, N, uniform):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("N", [64, 1025, 4095])
+@pytest.mark.parametrize("uniform", [True, False])
+def test_kernel_matches_plain_on_shaped_batches(cuda, N, uniform):
+    """Batches shaped against the grid of segment-owning blocks, each step
+    launched five times from the same state."""
+    cfg, rng, table, state = _setup(cuda, N=N, seed=N)
+    _, chunk = decide_cuda.launch_grid(N)
+    named = DC.adversarial_batches(cfg, rng, chunk, uniform, cfg.max_flows)
+    nows = [10_040 + dt for dt in DC.STEP_OFFSETS_MS]
+    max_err, mismatches, _, _, _ = DC.check_steps(
+        cfg, table, state, [b for _, b in named], nows, uniform, repeats=5)
+    torch.cuda.synchronize()
+    assert not mismatches, mismatches[:10]
+    assert max_err == 0.0
+
+
+@pytest.mark.gpu
 def test_wrapper_rejects_bad_inputs(cuda):
     cfg, rng, table, state = _setup(cuda, F=256, N=64)
     zipf = DC.ZipfIds(cfg.max_flows)
@@ -192,3 +209,160 @@ def test_param_batches_are_seeded_and_shaped():
     assert cols["idx"].max() < cfg.cell_width and cols["idx"].min() >= 0
     assert (~cols["valid"]).any() and (cols["rule_slot"] < 0).any()
     assert int(cols["acquire"].sum()) < 2**24  # the prefix precondition
+
+
+@pytest.mark.parametrize("n", [1, 31, 64, 1025, 16383, 16384, 65536, 10**6])
+def test_launch_grid_tiles_the_batch(n):
+    blocks, chunk = decide_cuda.launch_grid(n)
+    assert chunk >= decide_cuda.MIN_CHUNK
+    assert blocks <= decide_cuda.SM_COUNT
+    assert (blocks - 1) * chunk < n <= blocks * chunk
+
+
+def _cuts_at_heads(slots, chunk):
+    """Row ranges that tile the batch, cut at the first segment head at or
+    after each multiple of ``chunk`` (what the kernel's blocks own)."""
+    n = slots.size
+    heads = np.concatenate([[True], slots[1:] != slots[:-1]])
+    at = np.nonzero(heads)[0]
+    cuts = [0]
+    for b in range(chunk, n, chunk):
+        later = at[at >= b]
+        cut = int(later[0]) if later.size else n
+        if cut > cuts[-1]:
+            cuts.append(cut)
+    return list(zip(cuts, cuts[1:] + [n]))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_segments_are_independent(seed):
+    """The property the multi-block kernel rests on: with mixed acquires,
+    on a step that does not roll, ``decide_rows_plain`` run range by range
+    on a grouped batch cut at segment heads gives bitwise the rows and the
+    flow plane of one whole call.
+
+    Two things are batch-wide and excluded here. On a rolling step the
+    first range's call would zero the column and record the new start, and
+    the later ranges would compute their window masks from that new start
+    (the kernel takes the masks from the pre-roll starts in its first
+    launch). The uniform form's ``a`` is the max of the live acquires of
+    the whole batch (the kernel reduces it in its first launch). The batch
+    is not padded: padding rows map onto flow row 0 at the batch's end and
+    would read it after the first range wrote it (the kernel reads that one
+    cell from a snapshot)."""
+    N = 600
+    cfg, rng, table, state = _setup("cpu", N=N, seed=seed)
+    zipf = DC.ZipfIds(cfg.max_flows)
+    now = 10_040
+    for dt in (0, 5):  # fill the window; the second step does not roll
+        batch = DC.grouped_batch(cfg, rng, zipf, N, False, unknown=7)
+        state, _ = decide_cuda.decide_core_kernel(
+            cfg, state, table, batch, now + dt, grouped=True, uniform=False)
+    batch = DC.grouped_batch(cfg, rng, zipf, N, False, unknown=7)
+    config, flow, occ, fst, ost, t, cols, uniform = DC.kernel_args(
+        cfg, table, DC.clone_state(state), batch, now + 9, uniform=False)
+    flow, fst = state.flow.counts, state.flow.starts
+    idx_cur = (t // cfg.bucket_ms) % cfg.n_buckets
+    assert int(fst[idx_cur]) == t - t % cfg.bucket_ms  # no roll
+    assert int(flow[:, idx_cur].sum()) > 0
+
+    flow_w, fst_w = flow.clone(), fst.clone()
+    whole = decide_cuda.decide_rows_plain(config, flow_w, occ, fst_w, ost, t,
+                                          cols, uniform)
+    flow_c, fst_c = flow.clone(), fst.clone()
+    ranges = _cuts_at_heads(cols["safe_slot"].numpy(), 32)
+    assert len(ranges) > 8
+    parts = [
+        decide_cuda.decide_rows_plain(
+            config, flow_c, occ, fst_c, ost, t,
+            {k: v[a:b] for k, v in cols.items()}, uniform)
+        for a, b in ranges
+    ]
+    for f, want in zip(whole._fields, whole):
+        got = torch.cat([getattr(p, f) for p in parts])
+        assert torch.equal(got, want), f
+    assert torch.equal(flow_c, flow_w) and torch.equal(fst_c, fst_w)
+    assert not torch.equal(flow_w, flow)
+    assert bool(whole.admit.any()) and bool((~whole.admit).any())
+
+
+@pytest.mark.parametrize("N", [64, 200, 1025, 3000])
+@pytest.mark.parametrize("uniform", [True, False])
+def test_shaped_batches_reach_every_case(N, uniform):
+    """The batches shaped against the kernel's grid are seeded, reach every
+    shape a batch of their size can, and pass the repeat check against the
+    plain version on the CPU."""
+    cfg, rng, table, state = _setup("cpu", N=N, seed=N)
+    F = cfg.max_flows
+    _, chunk = decide_cuda.launch_grid(N)
+    named = DC.adversarial_batches(cfg, rng, chunk, uniform, F)
+    again = DC.adversarial_batches(
+        cfg, _setup("cpu", N=N, seed=N)[1], chunk, uniform, F)
+    shapes = set()
+    for (name, a), (_, b) in zip(named, again):
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y, err_msg=name)
+        slots = np.asarray(a.flow_slot)[np.asarray(a.valid)]
+        assert np.all(slots[:-1] <= slots[1:]), name  # grouped
+        shapes |= DC.shape_coverage(cfg, a, chunk, F)
+    assert shapes == DC.required_shapes(N)
+    nows = [10_040 + dt for dt in DC.STEP_OFFSETS_MS]
+    max_err, mismatches, _, statuses, reached = DC.check_steps(
+        cfg, table, state, [b for _, b in named], nows, uniform, repeats=2)
+    assert not mismatches and max_err == 0.0
+    assert "rolled_written_column" in reached
+    assert {0, 1} <= set(torch.cat(statuses).tolist())
+
+
+def test_repeat_check_catches_a_launch_that_differs(monkeypatch):
+    cfg, rng, table, state = _setup("cpu", N=64, seed=5)
+    zipf = DC.ZipfIds(cfg.max_flows)
+    batch = DC.grouped_batch(cfg, rng, zipf, 64, False)
+    plain, calls = decide_cuda.decide_rows_plain, []
+
+    def flaky(*args):
+        out = plain(*args)
+        calls.append(1)
+        if len(calls) == 2:  # the first repeat of the kernel side
+            out = out._replace(passed=out.passed + 1.0)
+        return out
+
+    monkeypatch.setattr(decide_cuda, "decide_rows", flaky)
+    _, mismatches, _, _, _ = DC.check_steps(cfg, table, state, [batch],
+                                            [10_040], False, repeats=3)
+    assert mismatches == ["step 0: repeat 1 differs in ['passed']"]
+
+
+@pytest.mark.parametrize("N", [8, 64, 300])
+@pytest.mark.parametrize("sketch", ["cms", "salsa"])
+def test_param_workloads_reach_every_case(sketch, N):
+    """On the CPU the wrappers run the plain versions: the seeded steps
+    reach every coverage case, the SALSA pair cases included, and every pair
+    no admitted row addressed keeps its bits."""
+    cfg = ParamConfig(max_param_rules=16, width=128, sketch=sketch)
+    batches, nows = PC.kernel_batches(cfg, N, seed=N)
+    r = PC.check_param_steps(cfg, make_param_state(cfg, device="cpu"),
+                             batches, nows)
+    assert not r.mismatches and r.max_abs_err == 0.0
+    assert r.reached == set(PC.coverage_for(sketch)), \
+        set(PC.coverage_for(sketch)) - r.reached
+    assert r.admitted > 0 and r.blocked > 0
+
+
+def test_untouched_pair_check_has_teeth():
+    cfg = ParamConfig(max_param_rules=16, width=128, sketch="salsa")
+    st = make_param_state(cfg, device="cpu")
+    cols = PC.to_device(PC.kernel_batches(cfg, 64, seed=1)[0][0], "cpu")
+    plane0 = st.counts[:, 0].clone()
+    admit = cols["valid"] & (cols["rule_slot"] >= 0)
+    assert PC.untouched_pairs_equal(plane0, plane0.clone(), cols, admit)
+    addressed = plane0.clone()
+    row = int(torch.nonzero(admit)[0])
+    addressed[cols["rule_slot"][row], 0, cols["idx"][row, 0]] += 1
+    assert PC.untouched_pairs_equal(plane0, addressed, cols, admit)
+    stray = plane0.clone()
+    free = torch.ones(cfg.cell_width, dtype=torch.bool)
+    free[(cols["idx"][:, 0].long() // 2) * 2] = False
+    free[(cols["idx"][:, 0].long() // 2) * 2 + 1] = False
+    stray[0, 0, int(torch.nonzero(free)[0])] += 1
+    assert not PC.untouched_pairs_equal(plane0, stray, cols, admit)

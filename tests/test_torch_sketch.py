@@ -132,3 +132,86 @@ def test_slim_steps_match_reference(now):
                        torch.as_tensor(idx), torch.as_tensor(idx_s),
                        torch.as_tensor(valid), now)
     assert_arrays_equal(j_sl2, t_state.slim, "slim after poststep")
+
+
+_ROW_FIELDS = ("rule_slot", "idx", "acquire", "threshold", "valid")
+
+
+@pytest.mark.parametrize("seed", range(3))
+@pytest.mark.parametrize("start", ["zeros", "reference"])
+def test_encode_is_identity_on_untouched_pairs(start, seed):
+    """What the touched-pairs-only CUDA kernel rests on: over seeded SALSA
+    streams, from zeros or from a state the jitted reference produced
+    (brought over with ``interop``), through rolls and merges, the plain
+    version's whole-plane re-encode changes no pair that no admitted row
+    addressed."""
+    import torch_param_check as PC
+
+    from sentinel_tpu_torch.ops import cms_cuda, salsa_cuda
+
+    kw = dict(max_param_rules=8, width=128, sketch="salsa")
+    jcfg, tcfg = JP.ParamConfig(**kw), TP.ParamConfig(**kw)
+    batches, nows = PC.kernel_batches(tcfg, 64, seed=seed)
+    state = TP.make_param_state(tcfg, device="cpu")
+    if start == "reference":
+        j_state = JP.make_param_state(jcfg)
+        for cols, now in zip(batches[:4], nows[:4]):
+            j_state, _, _ = j_salsa.salsa_decide_jax(
+                jcfg, j_state, *(jnp.asarray(cols[f]) for f in _ROW_FIELDS),
+                jnp.int32(now))
+        assert int(np.asarray(j_state.merges).sum()) > 0
+        state = interop.param_state_from_numpy(
+            interop.param_state_to_numpy(j_state), "cpu")
+        batches, nows = batches[4:], nows[4:]
+    kept_merged = kept_nonzero = 0
+    first = len(PC.STEP_OFFSETS_MS) - len(nows)
+    for k, (cols, now) in enumerate(zip(batches, nows), start=first):
+        if k in (1, 4, 6):  # a step in the bucket the step before wrote
+            # leave the hot slot alone: its merged pair must keep its bits
+            cols = dict(cols, valid=cols["valid"]
+                        & (cols["rule_slot"] != PC.HOT_SLOT))
+        c = PC.to_device(cols, "cpu")
+        plane0 = PC.current_plane_after_roll(tcfg, state, now)
+        admit, _ = salsa_cuda.salsa_decide_update_plain(
+            state.counts, state.starts, state.merges,
+            *(c[f] for f in _ROW_FIELDS), now, tcfg.bucket_ms)
+        cur = cms_cuda.ring(now, tcfg.bucket_ms, tcfg.n_buckets)[0]
+        plane1 = state.counts[:, cur]
+        assert PC.untouched_pairs_equal(plane0, plane1, c, admit)
+        # the check covered merged and counting pairs, not only zeros
+        same = (plane0 == plane1).view(8, tcfg.depth, -1, 2).all(dim=3)
+        pairs = plane0.view(8, tcfg.depth, -1, 2)
+        kept_merged += int((same & (pairs[..., 1] < 0)).sum())
+        kept_nonzero += int((same & (pairs != 0).any(dim=3)).sum())
+    assert kept_merged > 0 and kept_nonzero > kept_merged
+    assert int(state.merges.sum()) > 0
+
+
+def test_reference_cores_differ_on_out_of_range_rows():
+    """An observation the port's notes record (ROADMAP §C): for rows whose
+    slot or cell index lies outside the sketch, the reference's XLA core
+    clamps the gather (a non-zero estimate) while its Pallas kernel
+    estimates 0; both drop the scatter of an out-of-range slot. In-range
+    rows agree. The reference's callers never pass such rows, and the
+    port's kernels treat them as not live."""
+    cfg = JP.ParamConfig(max_param_rules=4, width=16, sketch="salsa")
+    rng = np.random.default_rng(0)
+    st = JP.make_param_state(cfg)
+    counts = rng.integers(1, 50, st.counts.shape).astype(np.int16)
+    st = st._replace(counts=jnp.asarray(counts),
+                     starts=jnp.asarray(np.array([20_000, 19_500], np.int32)))
+    slot = np.array([0, 4, 7, 2], np.int32)  # 4 and 7: past the last slot
+    idx = np.array([[1, 2], [1, 2], [3, 4], [5, 6]], np.int32)
+    args = (jnp.asarray(slot), jnp.asarray(idx),
+            jnp.asarray(np.full(4, 2, np.int32)),
+            jnp.asarray(np.full(4, 1e6, np.float32)),
+            jnp.asarray(np.ones(4, bool)), 20_040)
+    s_x, _, est_x = j_salsa.salsa_decide_jax(cfg, st, *args)
+    s_p, _, est_p = j_salsa.salsa_decide_pallas(cfg, st, *args)
+    est_x, est_p = np.asarray(est_x), np.asarray(est_p)
+    assert est_x[0] == est_p[0] and est_x[3] == est_p[3]
+    assert (est_x[1:3] > 0).all() and (est_p[1:3] == 0).all()
+    np.testing.assert_array_equal(np.asarray(s_x.counts),
+                                  np.asarray(s_p.counts))
+    changed = np.argwhere(np.asarray(s_x.counts) != counts)
+    assert set(changed[:, 0]) == {0, 2}  # only the in-range rows' slots

@@ -12,6 +12,18 @@ compares every output, verdict and state leaf with ``torch.equal``.
 wraps onto columns that hold counts: one step reads buckets about to expire
 (``expiring > 0``), later ones roll a written column and mask an aged one.
 :func:`check_steps` reports which of those the run reached.
+
+:func:`adversarial_batches` builds grouped batches by their segment heads,
+shaped to break a kernel whose blocks each own the segments that start in a
+nominal range of ``chunk`` rows (``decide_cuda.launch_grid``): heads exactly
+at, one before and one after the range bounds, ranges with no head, a
+segment longer than a 1024-row tile and one longer than the range, one flow
+for the whole batch, a flow per row, rows without a rule beside real slot-0
+rows, and a padded tail (which also maps onto slot 0). :func:`shape_coverage`
+reports which of :data:`SHAPE_COVERAGE` a batch reaches. With ``repeats``,
+:func:`check_steps` launches the kernel that many times from each step's
+input state and holds every repeat bitwise to the first, so that a race
+between blocks shows.
 """
 
 from __future__ import annotations
@@ -99,6 +111,140 @@ def grouped_batch(config: EngineConfig, rng: np.random.Generator,
     return make_batch(config, slots, acq, prio)
 
 
+TILE_ROWS = 1024  # the widest tile the decide kernel is built for
+SHAPE_COVERAGE = (
+    "segment_over_tile", "segment_over_chunk", "head_at_bound",
+    "head_before_bound", "head_after_bound", "empty_block", "one_flow",
+    "all_distinct", "no_rule_beside_slot0", "padded_tail",
+)
+
+
+def required_shapes(n: int) -> set:
+    """The :data:`SHAPE_COVERAGE` items a batch size of ``n`` can reach."""
+    need = set(SHAPE_COVERAGE)
+    if n <= TILE_ROWS:
+        need.discard("segment_over_tile")
+    return need
+
+
+def batch_from_heads(config: EngineConfig, rng: np.random.Generator,
+                     heads: np.ndarray, uniform: bool, n_flows: int,
+                     no_rule: int = 0) -> RequestBatch:
+    """A grouped batch whose segment heads are the true entries of
+    ``heads`` (row 0 is always one), padded to ``config.batch_size``. Flow
+    ids are drawn sorted and distinct from the first ``2 * len(heads)`` ids,
+    so that successive batches meet the same flows; with ``no_rule`` the
+    first segment is flow 0 and its first ``no_rule`` rows carry slot -1."""
+    n = heads.size
+    heads = heads.copy()
+    heads[0] = True
+    seg = np.cumsum(heads) - 1
+    k = int(seg[-1]) + 1
+    universe = min(n_flows, 2 * n)
+    if k > universe:
+        raise ValueError(f"{k} segments over {universe} flows")
+    ids = np.sort(rng.choice(universe, size=k, replace=False))
+    if no_rule:
+        if ids[0] != 0:
+            ids[0] = 0
+        if no_rule >= int((seg == 0).sum()):
+            raise ValueError("no real slot-0 row beside the rows without "
+                             "a rule")
+    slots = ids[seg].astype(np.int32)
+    slots[:no_rule] = -1
+    acq = (np.ones(n, np.int32) if uniform
+           else rng.integers(1, 4, size=n).astype(np.int32))
+    prio = rng.random(n) < 0.1
+    return make_batch(config, slots, acq, prio)
+
+
+def adversarial_batches(config: EngineConfig, rng: np.random.Generator,
+                        chunk: int, uniform: bool, n_flows: int):
+    """``[(name, batch)]``, one batch per entry of :data:`STEP_OFFSETS_MS`,
+    each ``config.batch_size`` rows shaped against blocks of ``chunk``
+    nominal rows."""
+    N = config.batch_size
+
+    def bounds(p_head, shift):
+        heads = rng.random(N) < p_head
+        for k in range(1, -(-N // chunk)):
+            at = k * chunk
+            heads[at - 1:at + 2] = False
+            if (k + shift) % 4 == 3:
+                # no head in the whole nominal range of block k
+                heads[at:at + chunk] = False
+            else:
+                heads[min(at + (0, -1, 1)[(k + shift) % 4], N - 1)] = True
+        return heads
+
+    def long_segments():
+        heads = rng.random(N) < 0.5
+        a = chunk // 2
+        b = a + min(TILE_ROWS + 476, N // 2)
+        c = b + min(chunk + 7, N // 4)
+        heads[a:c] = False
+        heads[[a, b, min(c, N - 1)]] = True
+        return heads
+
+    one_flow = np.zeros(N, bool)
+    distinct = np.ones(N, bool)
+    if N > n_flows:
+        raise ValueError(f"{N} distinct flows of {n_flows}")
+    mixed = rng.random(N - max(1, N // 8)) < 0.2
+    mixed[1:6] = False  # slot 0's segment holds 6 rows or more
+    cases = [
+        ("chunk_bounds", bounds(0.3, 0), 0),
+        ("long_segments", long_segments(), 0),
+        ("one_flow", one_flow, 0),
+        ("all_distinct", distinct, 0),
+        ("no_rule_and_padding", mixed, 3),
+        ("chunk_bounds_sparse", bounds(0.02, 1), 0),
+    ]
+    if len(cases) != len(STEP_OFFSETS_MS):
+        raise AssertionError("one adversarial batch per step")
+    return [(name, batch_from_heads(config, rng, heads, uniform, n_flows,
+                                    no_rule))
+            for name, heads, no_rule in cases]
+
+
+def shape_coverage(config: EngineConfig, batch: RequestBatch, chunk: int,
+                   n_flows: int) -> set:
+    """Which of :data:`SHAPE_COVERAGE` one batch reaches, as the kernel sees
+    it: segments are runs of equal safe slot (out-of-range slots read 0)."""
+    slot = np.asarray(batch.flow_slot)
+    valid = np.asarray(batch.valid)
+    N = slot.size
+    in_range = (slot >= 0) & (slot < n_flows)
+    safe = np.where(in_range, slot, 0)
+    heads = np.concatenate([[True], safe[1:] != safe[:-1]])
+    at = np.nonzero(heads)[0]
+    lengths = np.diff(np.concatenate([at, [N]]))
+    reached = set()
+    if (lengths > TILE_ROWS).any():
+        reached.add("segment_over_tile")
+    if (lengths > chunk).any():
+        reached.add("segment_over_chunk")
+    for k in range(1, -(-N // chunk)):
+        b = k * chunk
+        if heads[b]:
+            reached.add("head_at_bound")
+        elif heads[b - 1]:
+            reached.add("head_before_bound")
+        elif b + 1 < N and heads[b + 1]:
+            reached.add("head_after_bound")
+        if not heads[b:b + chunk].any():
+            reached.add("empty_block")
+    if at.size == 1:
+        reached.add("one_flow")
+    if at.size == N:
+        reached.add("all_distinct")
+    if ((slot[:-1] == -1) & valid[:-1] & (slot[1:] == 0) & valid[1:]).any():
+        reached.add("no_rule_beside_slot0")
+    if not valid[-1] and (valid & (slot == 0)).any():
+        reached.add("padded_tail")
+    return reached
+
+
 def compare(a, b) -> Optional[float]:
     """``None`` when equal (``torch.equal``), else the max |a - b|."""
     if torch.equal(a, b):
@@ -136,12 +282,14 @@ def ring_coverage(config: EngineConfig, state: EngineState,
 
 
 def check_steps(config: EngineConfig, table, state: EngineState,
-                batches, nows, uniform: bool):
+                batches, nows, uniform: bool, repeats: int = 1):
     """Step the kernel and its plain version over ``batches`` at ``nows``
     from two copies of ``state``. Returns ``(max_abs_err, mismatches,
     kernel_state, statuses, reached)``: mismatches lists ``"step k: field"``
     labels, statuses the kernel side's verdict statuses of every step,
-    reached the :data:`COVERAGE` items some step reached."""
+    reached the :data:`COVERAGE` items some step reached. With ``repeats``
+    above 1 the kernel is launched that many times from each step's input
+    state, and a repeat that differs in any bit is a mismatch."""
     st_k, st_p = clone_state(state), clone_state(state)
     mismatches, max_err, statuses, reached = [], 0.0, [], set()
     for k, (batch, now) in enumerate(zip(batches, nows)):
@@ -149,9 +297,21 @@ def check_steps(config: EngineConfig, table, state: EngineState,
         seen = {}
         kernel, plain = decide_cuda.decide_rows, decide_cuda.decide_rows_plain
 
-        def kern(*args):
-            seen["kernel"] = kernel(*args)
-            return seen["kernel"]
+        def kern(cfg, flow, occ, fstarts, *rest, k=k):
+            before = (flow.clone(), fstarts.clone()) if repeats > 1 else None
+            first = seen["kernel"] = kernel(cfg, flow, occ, fstarts, *rest)
+            for rep in range(1, repeats):
+                flow_r, fstarts_r = before[0].clone(), before[1].clone()
+                again = kernel(cfg, flow_r, occ, fstarts_r, *rest)
+                differ = [f for f, a, b in zip(first._fields, again, first)
+                          if not torch.equal(a, b)]
+                differ += [f for f, a, b in (("flow", flow_r, flow),
+                                             ("fstarts", fstarts_r, fstarts))
+                           if not torch.equal(a, b)]
+                if differ:
+                    mismatches.append(
+                        f"step {k}: repeat {rep} differs in {differ}")
+            return first
 
         def plain_rows(*args):
             seen["plain"] = plain(*args)

@@ -11,15 +11,22 @@ Everything is made from a ``numpy.random.Generator``:
   ``ClusterParamMetric.java:37``), acquires 1-3; plus, in every batch,
   padded rows, rows with ``rule_slot = -1``, a pair of rows on a fresh value
   whose budget fits one of them (the second is rejected by the in-batch
-  prefix alone), and a block of hot rows on one value with a high threshold
-  and a large acquire, which saturates its SALSA pair within one step;
+  prefix alone, on even steps), and a block of hot rows on one value with a
+  high threshold and a large acquire, none above SAT alone, which together
+  saturate their SALSA pair within one step; a row on the OTHER cell of that
+  pair (both cells of an unmerged pair whose summed adds merge it, then both
+  indices of a merged pair); on odd steps two small rows on the two cells
+  of another pair, which stays unmerged; on every third step an admitted
+  row that acquires 0;
 - service streams (:func:`service_stream`): requests of 1-4 values
   acquiring 1-3.
 
 :func:`check_param_steps` steps a kernel and its plain version over the
 batches from two copies of one state and compares admit, estimate and
-every state leaf with ``torch.equal``; it reports which of :data:`COVERAGE`
-the steps reached. :data:`STEP_OFFSETS_MS` (500 ms buckets, a 2-bucket ring)
+every state leaf with ``torch.equal``; for SALSA it also holds every pair
+of the current plane that no admitted row addressed to its bits before the
+step, on both sides, and the kernel's add-sum buffer to all zero. It reports
+which of :data:`COVERAGE` the steps reached. :data:`STEP_OFFSETS_MS` (500 ms buckets, a 2-bucket ring)
 spans 2.7 s: same-bucket steps, rolls onto buckets that hold counts, and
 steps that must mask an aged bucket that holds counts.
 """
@@ -37,12 +44,16 @@ from sentinel_tpu_torch.engine.param import (
     hash_indices,
 )
 from sentinel_tpu_torch.ops import cms_cuda, salsa_cuda
+from functools import lru_cache
+
 from sentinel_tpu_torch.sketch.salsa import SAT
 from torch_kernel_check import ZipfIds
 
 VALUES = 200_000  # distinct values per rule
 HOT_VALUES = 10  # item overrides on the hottest values of each rule
 HOT_SLOT = 1  # the slot of the saturating block
+BOTH_SLOT = 2  # the slot of the two small rows on one pair's two cells
+ZERO_SLOT = 3  # the slot of the admitted row that acquires 0
 T0_MS = 20_040
 # from T0: same bucket; a new bucket; a roll onto the first (written) bucket
 # and a step in it; a roll onto the second (written) bucket while the first
@@ -50,7 +61,17 @@ T0_MS = 20_040
 STEP_OFFSETS_MS = (0, 120, 600, 1110, 1150, 2660, 2720)
 COVERAGE = ("rolled_written_bucket", "masked_aged_bucket",
             "prefix_only_reject", "padded_rows", "no_rule_rows")
-SALSA_COVERAGE = COVERAGE + ("newly_merged", "routed_to_merged")
+SALSA_COVERAGE = COVERAGE + (
+    "newly_merged", "routed_to_merged",
+    # admitted rows on both cells of one unmerged pair that stays unmerged
+    "pair_both_cells",
+    # the same where no add alone lifts a side above SAT but their sums do:
+    # one merge, counted once
+    "pair_summed_merge",
+    # admitted rows on one merged pair through its even and its odd index
+    "merged_pair_both_indices",
+    "admitted_zero_acquire",
+)
 
 _MASK64 = np.uint64(0xFFFFFFFFFFFFFFFF)
 
@@ -83,15 +104,33 @@ class ParamRules:
         return np.where(values < HOT_VALUES, hot, base).astype(np.float32)
 
 
-def _hot_value(config: ParamConfig) -> int:
-    """The first value past the Zipf range whose lane-0 cell is odd: adds
-    to it are routed once its SALSA pair has merged."""
-    v = VALUES
-    while True:
-        h = value_hashes(np.array([HOT_SLOT]), np.array([v]))
-        if hash_indices(h, config.depth, config.cell_width)[0, 0] % 2 == 1:
-            return v
-        v += 1
+def _lane0_cells(config: ParamConfig, slot: int,
+                 values: np.ndarray) -> np.ndarray:
+    h = value_hashes(np.full(values.shape, slot), values)
+    return hash_indices(h, config.depth, config.cell_width)[:, 0]
+
+
+@lru_cache(maxsize=None)
+def _special_values(depth: int, cell_width: int) -> Tuple[int, int, int, int]:
+    """``(hot, hot_partner, both_even, both_odd)``: values past the Zipf
+    range, found by search. ``hot`` has an odd lane-0 cell in ``HOT_SLOT``
+    (adds to it are routed once its SALSA pair has merged) and
+    ``hot_partner`` the even cell of the same pair; ``both_even`` and
+    ``both_odd`` share one lane-0 pair in ``BOTH_SLOT``."""
+    config = ParamConfig(depth=depth, width=cell_width)  # cms: cells = width
+    cand = np.arange(VALUES, VALUES + 64 * cell_width)
+    cells = _lane0_cells(config, HOT_SLOT, cand)
+    hot_at = int(np.argmax(cells % 2 == 1))
+    partner_at = np.nonzero(cells == cells[hot_at] - 1)[0]
+    cells_b = _lane0_cells(config, BOTH_SLOT, cand)
+    order = np.argsort(cells_b, kind="stable")
+    sorted_cells = cells_b[order]
+    adj = np.nonzero((sorted_cells[:-1] % 2 == 0)
+                     & (sorted_cells[1:] == sorted_cells[:-1] + 1))[0]
+    if not partner_at.size or not adj.size:
+        raise RuntimeError("no special values among the candidates")
+    return (int(cand[hot_at]), int(cand[partner_at[0]]),
+            int(cand[order[adj[0]]]), int(cand[order[adj[0] + 1]]))
 
 
 def kernel_batch(config: ParamConfig, rng: np.random.Generator,
@@ -104,26 +143,48 @@ def kernel_batch(config: ParamConfig, rng: np.random.Generator,
     n_pad = max(1, n // 64)
     n_none = max(1, n // 100)
     k_hot = max(2, n // 64)
-    n_rand = n - n_pad - n_none - 2 - k_hot
+    hot, partner, both_even, both_odd = _special_values(config.depth,
+                                                        config.cell_width)
+    n_zero = 1 if step % 3 == 0 else 0
+    n_rand = n - n_pad - n_none - 2 - n_zero - 1 - k_hot
+    if step % 2 == 0:
+        # a fresh value each step whose budget fits one of its two rows
+        two_slots, two_values = np.full(2, (7 * step + 3) % P), \
+            np.full(2, VALUES + 1000 + step)
+        two_acq, two_thr = np.full(2, 2), 3.0
+    else:
+        two_slots, two_values = np.full(2, BOTH_SLOT), \
+            np.array([both_even, both_odd])
+        two_acq, two_thr = np.array([1, 2]), 1e9
     slots = np.concatenate([
         np.minimum(slot_zipf(rng, n_rand), P - 1),
         np.full(n_none, -1),
-        np.full(2, (7 * step + 3) % P),
-        np.full(k_hot, HOT_SLOT),
+        two_slots,
+        np.full(n_zero, ZERO_SLOT),
+        np.full(1 + k_hot, HOT_SLOT),
     ]).astype(np.int64)
     values = np.concatenate([
         value_zipf(rng, n_rand + n_none),
-        np.full(2, VALUES + 1000 + step),  # fresh each step
-        np.full(k_hot, _hot_value(config)),
+        two_values,
+        np.full(n_zero, VALUES + 3000 + step),
+        np.full(1, partner),
+        np.full(k_hot, hot),
     ])
+    # no hot add lifts its cell above SAT alone; together they do
+    hot_acq = max(64, SAT // k_hot + 1)
+    if hot_acq > SAT:
+        raise ValueError("one hot add must stay at or below SAT")
     acq = np.concatenate([
         rng.integers(1, 4, size=n_rand + n_none),
-        np.full(2, 2),
-        np.full(k_hot, max(64, SAT // k_hot + 1)),
+        two_acq,
+        np.zeros(n_zero),
+        np.ones(1),
+        np.full(k_hot, hot_acq),
     ]).astype(np.int32)
     thr = rules.threshold(np.maximum(slots, 0), values)
-    thr[n_rand + n_none:n_rand + n_none + 2] = 3.0  # fits one of the pair
-    thr[n - n_pad - k_hot:] = 1e9
+    at = n_rand + n_none
+    thr[at:at + 2] = two_thr
+    thr[at + 2:] = 1e9
     order = rng.permutation(n - n_pad)
     slots, values, acq, thr = slots[order], values[order], acq[order], \
         thr[order]
@@ -172,11 +233,80 @@ def step_fns(sketch: str):
             run_salsa(salsa_cuda.salsa_decide_update_plain))
 
 
+def _pair_coverage(plane0: np.ndarray, plane1: np.ndarray,
+                   cols: Dict[str, np.ndarray], admit: np.ndarray) -> set:
+    """The pair cases of :data:`SALSA_COVERAGE` one step reached, from the
+    current plane as the roll left it (``plane0 [P, D, 2W]``), the plane
+    after the step and the admitted rows."""
+    rows = np.nonzero(admit)[0]
+    reached = set()
+    if not rows.size:
+        return reached
+    if (cols["acquire"][rows] == 0).any():
+        reached.add("admitted_zero_acquire")
+    P, D, C = plane0.shape
+    slot = cols["rule_slot"][rows].astype(np.int64)[:, None]  # [n, 1]
+    idx = cols["idx"][rows].astype(np.int64)  # [n, D]
+    d_ar = np.arange(D)[None, :]
+    acq = np.broadcast_to(cols["acquire"][rows].astype(np.int64)[:, None],
+                          idx.shape)
+    merged0 = plane0[slot, d_ar, idx | 1] < 0
+    merged1 = plane1[slot, d_ar, idx | 1] < 0
+    own0 = plane0[slot, d_ar, idx].astype(np.int64)
+    key = ((slot * D + d_ar) * C + (idx & ~1)).reshape(-1)
+    _, inv = np.unique(key, return_inverse=True)
+    odd = (idx % 2 == 1).reshape(-1)
+    n_groups = inv.max() + 1
+    has_even = np.bincount(inv, weights=~odd, minlength=n_groups) > 0
+    has_odd = np.bincount(inv, weights=odd, minlength=n_groups) > 0
+    both = (has_even & has_odd)[inv]
+    m0, m1 = merged0.reshape(-1), merged1.reshape(-1)
+    alone = (own0 + acq).reshape(-1) > SAT  # this add alone saturates
+    any_alone = (np.bincount(inv, weights=alone, minlength=n_groups) > 0)[inv]
+    if (both & ~m0 & ~m1).any():
+        reached.add("pair_both_cells")
+    if (both & ~m0 & m1 & ~any_alone).any():
+        reached.add("pair_summed_merge")
+    if (both & m0).any():
+        reached.add("merged_pair_both_indices")
+    return reached
+
+
+def current_plane_after_roll(config: ParamConfig, before: ParamState,
+                             now: int) -> torch.Tensor:
+    """The current bucket's ``[P, D, cells]`` plane as the roll of a step at
+    ``now`` leaves it: zeros when its recorded start is stale."""
+    cur, cur_start = cms_cuda.ring(now, config.bucket_ms, config.n_buckets)
+    plane = before.counts[:, cur]
+    if int(before.starts[cur]) != cur_start:
+        return torch.zeros_like(plane)
+    return plane.clone()
+
+
+def untouched_pairs_equal(plane0: torch.Tensor, plane1: torch.Tensor,
+                          cols: Dict[str, torch.Tensor],
+                          admit: torch.Tensor) -> bool:
+    """Whether every pair of a SALSA plane that no admitted row addressed
+    has the same bits after the step (``plane1``) as before (``plane0``)."""
+    P, D, C = plane0.shape
+    rows = torch.nonzero(admit)[:, 0]
+    touched = torch.zeros((P, D, C // 2), dtype=torch.bool,
+                          device=plane0.device)
+    slot = cols["rule_slot"][rows].long()[:, None]
+    d_ar = torch.arange(D, device=plane0.device)[None, :]
+    touched[slot, d_ar, cols["idx"][rows].long() // 2] = True
+    keep = ~touched
+    pairs0 = plane0.view(P, D, C // 2, 2)
+    pairs1 = plane1.view(P, D, C // 2, 2)
+    return torch.equal(pairs0[keep], pairs1[keep])
+
+
 def step_coverage(config: ParamConfig, before: ParamState,
                   cols: Dict[str, np.ndarray], now: int, admit: np.ndarray,
-                  est: np.ndarray, merges_after: np.ndarray) -> set:
+                  est: np.ndarray, after: ParamState) -> set:
     """Which of :data:`SALSA_COVERAGE` one step reached, from the state
-    before it, its inputs and its outputs."""
+    before it, its inputs, its outputs and the state after it."""
+    merges_after = after.merges.cpu().numpy()
     cur, cur_start = cms_cuda.ring(now, config.bucket_ms, config.n_buckets)
     starts = before.starts.cpu().numpy()
     counts = before.counts.cpu().numpy()
@@ -211,6 +341,9 @@ def step_coverage(config: ParamConfig, before: ParamState,
                 hi = counts[slot[rows], cur, d, c | 1]
                 if ((c % 2 == 1) & (hi < 0)).any():
                     reached.add("routed_to_merged")
+        plane0 = current_plane_after_roll(config, before, now).cpu().numpy()
+        reached |= _pair_coverage(plane0, after.counts[:, cur].cpu().numpy(),
+                                  cols, admit)
     return reached
 
 
@@ -251,13 +384,25 @@ def check_param_steps(config: ParamConfig, state: ParamState, batches,
             if err is not None:
                 mismatches.append(f"step {k}: {label}")
                 max_err = max(max_err, err)
+        if config.sketch == "salsa":
+            plane0 = current_plane_after_roll(config, before, now)
+            cur = cms_cuda.ring(now, config.bucket_ms, config.n_buckets)[0]
+            for side, st in (("kernel", st_k), ("plain", st_p)):
+                if not untouched_pairs_equal(plane0, st.counts[:, cur], c,
+                                             a_p):
+                    mismatches.append(
+                        f"step {k}: a pair no admitted row addressed "
+                        f"changed ({side})")
+            delta = salsa_cuda.persistent_delta(st_k.counts)
+            if delta is not None and bool(delta.any()):
+                mismatches.append(f"step {k}: the add-sum buffer is not "
+                                  f"all zero")
         admit = a_p.cpu().numpy()
         live = cols["valid"] & (cols["rule_slot"] >= 0)
         admitted += int(admit.sum())
         blocked += int((live & ~admit).sum())
         reached |= step_coverage(config, before, cols, now, admit,
-                                 e_p.cpu().numpy(),
-                                 st_p.merges.cpu().numpy())
+                                 e_p.cpu().numpy(), st_p)
     return StepCheck(max_err, mismatches, st_k, reached, admitted, blocked)
 
 
