@@ -34,23 +34,37 @@ Builds the port's CUDA kernels from ``sentinel_tpu_torch/csrc`` (one
    host's launches enters no other phase's times);
 4. holds the CMS and SALSA param kernels against their plain versions,
    bitwise, at the service's default sketch (256 rules, depth 2, width
-   2048, two 500 ms buckets) and N = 8 / 64 / 1024 / 4096, over seven steps
-   spanning 2.7 s that roll written buckets, mask aged ones, reject rows by
-   the in-batch prefix alone and merge SALSA pairs, with admitted rows on
-   both cells of one unmerged pair (staying unmerged, and merged by their
-   summed adds), on both indices of a merged pair, and acquiring 0; every
-   SALSA pair no admitted row addressed must keep its bits
-   (``tests/torch_param_check.py`` holds the workloads), and times them;
+   2048, two 500 ms buckets) and N = 1 / 8 / 32 / 33 / 64 / 65 / 300 /
+   1024 / 2048 / 4096 / 4097 / 9000 (each admission path: one warp up to 64
+   rows, the sort in shared memory up to 8192, in the global workspace
+   above), over seven steps spanning 2.7 s that roll written buckets, mask
+   aged ones, reject rows by the in-batch prefix alone and merge SALSA
+   pairs, with admitted rows on both cells of one unmerged pair (staying
+   unmerged, and merged by their summed adds), on both indices of a merged
+   pair, and acquiring 0 (below 8 rows, one row a step: what one row can
+   reach); every SALSA pair no admitted row addressed must keep its bits
+   (``tests/torch_param_check.py`` holds the workloads); then times them at
+   N = 8 / 64 / 1024 / 4096, a step that does not roll and, apart, steps
+   that each roll (zeroing the 4 MiB current plane in the same launch);
 5. drives the hot-param path: per sketch, a service on the kernel and one on
    the torch-ops core answer the same ``request_params_token`` stream (256
    rules, Zipf values, one reload that frees and reuses slots) over more
    than two seconds of engine clock with equal verdicts and sketches, one
    kernel launch per request, and host p50 / p99 per request;
-6. holds the segment-prefix kernel against its plain version on ungrouped
-   Zipf flow ids (N = 64 / 1024 / 16384), times it, and runs one ungrouped
-   decide step at F=100k with ``prefix_impl="pallas"`` that must equal the
-   ``"sort"`` step in verdicts and every state leaf;
-7. prints the timings, the card's name and power limit, one
+6. holds the segment-prefix plan kernel bitwise against its plain version
+   and the apply kernel against the mask form, at N = 1 / 31 / 32 / 33 /
+   1025 / 5000 / 16384 / 16385 / 65536 on every key shape of
+   ``torch_kernel_check.prefix_key_shapes`` (Zipf flow ids, one key, a key
+   per row, keys equal in their low 8 or 16 bits, negative keys with the
+   int32 extremes); times the plan and the apply at N = 64 / 1024 / 16384;
+   runs one ungrouped decide step at F=100k with ``prefix_impl="pallas"``
+   that must equal the ``"sort"`` step in verdicts and every state leaf, and
+   times its prefix work (one plan, its 13 applies) with CUDA events;
+7. after every other phase, besides phase 3's profiled pulls, traces 20
+   ``request_params_token`` calls per sketch and counts the CUDA kernels
+   each call launched, the param kernel's apart from the torch ops around
+   it: exactly one param kernel a call;
+8. prints the timings, the card's name and power limit, one
    ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
 
 Any failed check raises and exits non-zero. With no CUDA device, or run from
@@ -62,6 +76,7 @@ from __future__ import annotations
 import itertools
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -81,7 +96,13 @@ ADVANCES_MS = (5, 130, 45, 930)
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_F32_OPS_PER_S = 67e12  # H100 SXM float32, outside the tensor cores
 PARAM_SIZES = (8, 64, 1024, 4096)  # 8: what request_params_token sends
+# every admission path and its edges: one warp (<= 32, <= 64 rows), the sort
+# in shared memory (<= 8192), in the global workspace (above)
+PARAM_CHECK_SIZES = (1, 8, 32, 33, 64, 65, 300, 1024, 2048, 4096, 4097, 9000)
 PREFIX_SIZES = (64, 1024, 16384)
+# the one-block edges of the plan (16384) and the apply (1024 items)
+PREFIX_CHECK_SIZES = (1, 31, 32, 33, 1025, 5000, 16384, 16385, 65536)
+PROFILED_PARAM_CALLS = 20
 PARAM_REQUESTS = 600  # per sketch, half before and half after a reload
 PARAM_ADVANCES_MS = (1, 2, 4, 9)  # engine clock between param requests
 SKETCHES = ("cms", "salsa")
@@ -456,7 +477,7 @@ def phase_param_parity(torch, dev):
     for sketch in SKETCHES:
         cfg = ParamConfig(sketch=sketch)
         max_err, steps = 0.0, 0
-        for n in PARAM_SIZES:
+        for n in PARAM_CHECK_SIZES:
             batches, nows = PC.kernel_batches(cfg, n, seed=n)
             r = PC.check_param_steps(cfg, make_param_state(cfg, device=dev),
                                      batches, nows)
@@ -465,7 +486,7 @@ def phase_param_parity(torch, dev):
                 raise AssertionError(
                     f"{sketch} kernel != plain at N={n}: {r.mismatches[:8]}"
                 )
-            missing = set(PC.coverage_for(sketch)) - r.reached
+            missing = set(PC.coverage_for(sketch, n)) - r.reached
             if missing:
                 raise AssertionError(
                     f"{sketch} N={n}: the steps never reached "
@@ -504,6 +525,15 @@ def phase_param_timing(torch, dev):
                                 50, torch)
             plain_ms = cuda_ms(lambda: plain(st_p, c, now, cfg.bucket_ms),
                                5, torch)
+            # the same slot a whole window later: every call finds its start
+            # stale and zeroes the current plane
+            flip = [now, now + cfg.interval_ms]
+
+            def rolling():
+                flip.reverse()
+                kernel(st, c, flip[0], cfg.bucket_ms)
+
+            rolling_ms = cuda_ms(rolling, 20, torch)
             rows_in = torch.nonzero(admit)[:, 0]
             pair_ids = ((c["rule_slot"][rows_in].long()[:, None] * cfg.depth
                          + torch.arange(cfg.depth, device=dev)[None, :])
@@ -515,9 +545,11 @@ def phase_param_timing(torch, dev):
             bound_ms = max(nbytes / PEAK_BYTES_PER_S,
                            ops / PEAK_F32_OPS_PER_S) * 1e3
             rows[n] = dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                           bytes=nbytes, admitted=admitted)
-            log(f"timing {sketch} N={n}: kernel {kernel_ms:.4f} ms, plain "
-                f"{plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({nbytes} B)")
+                           bytes=nbytes, admitted=admitted,
+                           rolling_ms=rolling_ms)
+            log(f"timing {sketch} N={n}: kernel {kernel_ms:.4f} ms "
+                f"(rolling {rolling_ms:.4f} ms), plain {plain_ms:.4f} ms, "
+                f"bound {bound_ms:.6f} ms ({nbytes} B)")
         out[sketch] = rows
     for n in PARAM_SIZES:
         ratio = out["salsa"][n]["ms"] / out["cms"][n]["ms"]
@@ -527,7 +559,9 @@ def phase_param_timing(torch, dev):
 
 def phase_param_service(torch, dev):
     """The hot-param path: a service on the kernel vs one on the torch-ops
-    core, per sketch, read through the kernel's launch count."""
+    core, per sketch, read through the kernel's launch count. Also returns
+    a function that traces more requests of each kernel service (called
+    last, as phase 3's profiled pulls are)."""
     from collections import Counter
 
     import torch_param_check as PC
@@ -542,7 +576,7 @@ def phase_param_service(torch, dev):
 
     counters = {"cms": (cms_cuda.LAUNCHES, "cms_decide_update"),
                 "salsa": (salsa_cuda.LAUNCHES, "salsa_decide_update")}
-    out = {}
+    out, services = {}, {}
     for sketch in SKETCHES:
         mc = clock.ManualClock(1_700_000_000_000)
         prev = clock.set_clock(mc)
@@ -622,43 +656,111 @@ def phase_param_service(torch, dev):
                 f"kernel launches; verdicts {dict(seen)}; p50 "
                 f"{out[sketch]['p50_ms']:.3f} ms, p99 "
                 f"{out[sketch]['p99_ms']:.3f} ms a request")
+            services[sketch] = (svc, mc, PC.service_stream(
+                reload, rng, PROFILED_PARAM_CALLS))
         finally:
             clock.set_clock(prev)
+
+    def profiled_params():
+        return {sketch: param_call_kernels(torch, sketch, *services[sketch])
+                for sketch in SKETCHES}
+
+    return out, profiled_params
+
+
+def param_call_kernels(torch, sketch, svc, mc, stream):
+    """CUDA kernels a ``request_params_token`` call launches, by name, from
+    a ``torch.profiler`` trace of ``stream``'s calls: the param kernel's
+    (``csrc/<sketch>.cu``) must be exactly one a call; the torch ops around
+    it (host-to-device copies, the slim twin, the verdict) are counted
+    apart."""
+    from sentinel_tpu_torch.core import clock
+    from torch.profiler import ProfilerActivity, profile
+
+    prev = clock.set_clock(mc)
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for fid, acq, hashes in stream:
+                svc.request_params_token(fid, acq, hashes)
+                mc.advance(3)
+            torch.cuda.synchronize()
+    finally:
+        clock.set_clock(prev)
+    calls = len(stream)
+    ours, others = {}, {}
+    for evt in prof.key_averages():
+        if not str(evt.device_type).endswith("CUDA") or not evt.count:
+            continue
+        mine = f"{sketch}_decide_kernel" in evt.key
+        (ours if mine else others)[evt.key] = evt.count
+    per_call = {re.search(r"\w+_kernel", k).group(0): v / calls
+                for k, v in ours.items()}
+    if sum(ours.values()) != calls:
+        raise AssertionError(
+            f"{sketch}: {calls} profiled calls launched {ours} kernels of "
+            f"csrc/{sketch}.cu, not one a call")
+    out = dict(calls=calls, param_kernels_a_call=per_call,
+               torch_kernels_a_call=sum(others.values()) / calls)
+    log(f"param service {sketch}: {calls} profiled calls, kernels of "
+        f"csrc/{sketch}.cu a call {per_call}; other CUDA kernels a call "
+        f"(torch ops: copies, slim twin, verdict) "
+        f"{out['torch_kernels_a_call']:.2f}")
     return out
 
 
 def phase_prefix(torch, dev, cfg, table, state):
-    """The segment-prefix kernel vs its plain version, then an ungrouped
-    decide step with prefix_impl="pallas" vs "sort"."""
+    """The segment-prefix plan and apply kernels vs their plain versions on
+    every key shape, their times, then an ungrouped decide step with
+    prefix_impl="pallas" vs "sort" and the device time of its prefix work."""
     import torch_kernel_check as DC
 
     from sentinel_tpu_torch.engine.decide import decide, make_batch
-    from sentinel_tpu_torch.engine.prefix import segment_prefix_builder
     from sentinel_tpu_torch.ops import prefix_cuda as PK
 
     rng = np.random.default_rng(5)
+    max_err, checked = 0.0, 0
+    for n in PREFIX_CHECK_SIZES:
+        for shape, keys_np in DC.prefix_key_shapes(rng, n).items():
+            keys = torch.as_tensor(keys_np, device=dev)
+            contrib = torch.as_tensor(
+                rng.integers(0, 4, n).astype(np.float32), device=dev)
+            plan = PK.segment_prefix_plan(keys)
+            got = PK.segment_prefix_apply(plan, contrib)
+            want = PK.segment_prefix_plain(keys, contrib)
+            torch.cuda.synchronize()
+            if not torch.equal(plan.order,
+                               PK.segment_prefix_plan_plain(keys).order):
+                raise AssertionError(f"prefix plan != plain at N={n} "
+                                     f"({shape})")
+            max_err = max(max_err, float((got - want).abs().max()))
+            if not torch.equal(got, want):
+                raise AssertionError(f"prefix apply != mask at N={n} "
+                                     f"({shape})")
+            checked += 1
+    log(f"prefix: plan == plain and apply == mask on {checked} key vectors "
+        f"(N = {PREFIX_CHECK_SIZES}, shapes {DC.PREFIX_KEY_SHAPES})")
+
     zipf = DC.ZipfIds(F, alpha=1.1)
-    timing, max_err = {}, 0.0
+    timing = {}
     for n in PREFIX_SIZES:
         keys = torch.as_tensor(zipf(rng, n).astype(np.int32), device=dev)
         contrib = torch.as_tensor(rng.integers(0, 4, n).astype(np.float32),
                                   device=dev)
-        got = segment_prefix_builder(keys, "pallas")(contrib)
-        want = PK.segment_prefix_plain(keys, contrib)
-        torch.cuda.synchronize()
-        max_err = max(max_err, float((got - want).abs().max()))
-        if not torch.equal(got, want):
-            raise AssertionError(f"prefix kernel != plain at N={n}")
-        kernel_ms = cuda_ms(lambda: PK.segment_prefix(keys, contrib), 50,
-                            torch)
+        plan = PK.segment_prefix_plan(keys)
+        plan_ms = cuda_ms(lambda: PK.segment_prefix_plan(keys), 50, torch)
+        apply_ms = cuda_ms(lambda: PK.segment_prefix_apply(plan, contrib),
+                           50, torch)
         plain_ms = cuda_ms(lambda: PK.segment_prefix_plain(keys, contrib),
                            5, torch)
-        nbytes = 12 * n
+        nbytes = 12 * n  # a call reads key and contribution, writes out
         bound_ms = max(nbytes / PEAK_BYTES_PER_S,
                        n / PEAK_F32_OPS_PER_S) * 1e3
-        timing[n] = dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms)
-        log(f"prefix N={n}: kernel == plain; kernel {kernel_ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms")
+        timing[n] = dict(ms=apply_ms, plan_ms=plan_ms, plain_ms=plain_ms,
+                         bound_ms=bound_ms)
+        log(f"prefix N={n}: apply {apply_ms:.4f} ms, plan {plan_ms:.4f} ms, "
+            f"plain (mask) {plain_ms:.4f} ms, bound {bound_ms:.6f} ms a call")
 
     # one ungrouped decide step at F=100k, after two steps that fill state
     n = SIZES[-1]
@@ -676,12 +778,28 @@ def phase_prefix(torch, dev, cfg, table, state):
         st, _ = decide(c_sort, st, table, pull(), now)
     batch, now = pull(), 60_420
     PK.LAUNCHES.update(dict.fromkeys(PK.LAUNCHES, 0))
-    st_p, v_p = decide(c_pal, st, table, batch, now)
+    plans, applies = [], []
+    plan_fn, apply_fn = PK.segment_prefix_plan, PK.segment_prefix_apply
+
+    def plan_rec(keys):
+        plans.append(keys)
+        return plan_fn(keys)
+
+    def apply_rec(plan, contrib):
+        applies.append(contrib.to(torch.float32).clone())
+        return apply_fn(plan, contrib)
+
+    PK.segment_prefix_plan, PK.segment_prefix_apply = plan_rec, apply_rec
+    try:
+        st_p, v_p = decide(c_pal, st, table, batch, now)
+    finally:
+        PK.segment_prefix_plan, PK.segment_prefix_apply = plan_fn, apply_fn
     torch.cuda.synchronize()
-    launches = PK.LAUNCHES["segment_prefix"]
+    launches = dict(PK.LAUNCHES)
     st_s, v_s = decide(c_sort, st, table, batch, now)
-    if launches < 1:
-        raise AssertionError("the pallas decide step never ran the kernel")
+    if launches["segment_prefix_plan"] != 1 or \
+            launches["segment_prefix_apply"] < 1:
+        raise AssertionError(f"the pallas decide step launched {launches}")
     pairs = [(f"verdict.{f}", a, b) for f, a, b in zip(v_p._fields, v_p, v_s)]
     pairs += [(f"state.{pn}.{f}", a, b)
               for pn, pa, pb in zip(st_p._fields, st_p, st_s)
@@ -689,11 +807,19 @@ def phase_prefix(torch, dev, cfg, table, state):
     bad = [label for label, a, b in pairs if not torch.equal(a, b)]
     if bad:
         raise AssertionError(f"pallas decide != sort decide: {bad}")
+
+    def step_prefix():
+        plan = PK.segment_prefix_plan(plans[0])
+        for contrib in applies:
+            PK.segment_prefix_apply(plan, contrib)
+
+    step_ms = cuda_ms(step_prefix, 20, torch)
     ok = int((v_p.status == 0).sum())
     log(f"ungrouped decide N={n}: prefix_impl pallas == sort in verdicts "
-        f"and every state leaf; {launches} prefix kernel launches; "
-        f"{ok} rows OK")
-    return launches, max_err, timing
+        f"and every state leaf; prefix launches {launches}; {ok} rows OK; "
+        f"the step's prefix work (1 plan, {len(applies)} applies) "
+        f"{step_ms:.4f} ms on the device")
+    return launches, max_err, timing, step_ms
 
 
 def main() -> int:
@@ -741,10 +867,12 @@ def main() -> int:
     launches, service, profiled_pulls = phase_service(torch, dev)
     param_parity = phase_param_parity(torch, dev)
     param_timing = phase_param_timing(torch, dev)
-    param_service = phase_param_service(torch, dev)
-    prefix_launches, prefix_err, prefix_timing = phase_prefix(
+    param_service, profiled_params = phase_param_service(torch, dev)
+    prefix_launches, prefix_err, prefix_timing, step_ms = phase_prefix(
         torch, dev, cfg, table, state)
     service[SIZES[-1]].update(profiled_pulls())
+    for sketch, kernels_a_call in profiled_params().items():
+        param_service[sketch]["profiled"] = kernels_a_call
 
     ident = gpu_identity()
     main_n = SIZES[-1]
@@ -778,6 +906,7 @@ def main() -> int:
             "bound_ms": main_row["bound_ms"],
             "bound_by": "bytes",
             "library_ms": None,
+            "rolling_ms": main_row["rolling_ms"],
             "parity_steps": param_parity[sketch][1],
             "by_n": {str(n): v for n, v in param_timing[sketch].items()},
         })
@@ -787,13 +916,16 @@ def main() -> int:
         "route": "cuda",
         "source": "sentinel_tpu_torch/csrc/prefix.cu",
         "replaces": "sentinel_tpu/ops/prefix_pallas.py:32",
-        "launches": prefix_launches,
+        "launches": prefix_launches["segment_prefix_apply"],
+        "plan_launches": prefix_launches["segment_prefix_plan"],
         "max_abs_err": prefix_err,
         "ms": main_row["ms"],
         "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"],
         "bound_by": "bytes",
         "library_ms": None,
+        "plan_ms": main_row["plan_ms"],
+        "step_ms": step_ms,
         "by_n": {str(n): v for n, v in prefix_timing.items()},
     })
     log(json.dumps({"service": {str(n): v for n, v in service.items()},

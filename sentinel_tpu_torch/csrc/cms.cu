@@ -3,34 +3,43 @@
 //
 // Replaces the TPU kernel sentinel_tpu/ops/cms_pallas.py
 // (cms_decide_update_pallas -> _make_kernel). Per batch of N requests on a
-// sketch counts[P, B, D, W] int32 (the state's own layout):
+// sketch counts[P, B, D, W] int32 (the state's own layout), in ONE launch of
+// one block (cms_decide_kernel):
 //
-//   1. the roll: zero ring slot `cur` of every slot's [D, W] lanes when its
-//      recorded start is stale (launch 1, param::roll_kernel);
+//   1. the roll: when the current bucket's recorded start is stale, the
+//      block zeroes ring slot `cur` of every slot's [D, W] lanes before any
+//      read of it (param::begin);
 //   2. per row: the estimate, min over the D lanes of the cell sums over
 //      the window's buckets; the greedy in-batch prefix admission on the
-//      (slot, index-tuple) key (param::admit_passes); then each admitted
-//      row adds its acquire to its D current-bucket cells with int32
-//      atomics, which commute, so the result is the same bits in any order
-//      (launch 2, cms_decide_kernel).
+//      (slot, index-tuple) key (param::admit); then each admitted row adds
+//      its acquire to its D current-bucket cells with int32 atomics, which
+//      commute, so the result is the same bits in any order.
 //
 // What bounds it. Memory traffic: per row D x B gathered cells, D cells
 // written when admitted, a few [N] columns; and once per bucket (500 ms at
 // the service's default) the P x D x W current plane zeroed, 4 MiB at
-// P=256, D=2, W=2048. The arithmetic is a few dozen operations a row, plus
-// the prefix admission.
+// P=256, D=2, W=2048. The arithmetic is a few dozen operations a row. At
+// the service's N=8 the call moves a few hundred bytes, so what bounds it
+// in practice is the launch and the chain of dependent loads; at N=4096,
+// the admission's sort and each thread's chains of dependent gathers.
 //
-// Design (the simple one, right first). The TPU kernel gathers and scatters
-// with one-hot matmuls on the MXU; here a row reads its cells directly and
-// adds with atomics. Launch 2 is ONE block of 1024 threads: the three
-// admission passes need every row's previous pass, and one block orders
-// them with __syncthreads alone. Each row's in-batch prefix is an O(N) scan
-// of the earlier rows, so a pass is O(N^2); at the service's N=8 that is
-// nothing, at N=4096 it dominates the step. The roll is its own grid-wide
-// launch so that a stale bucket reads as zero in the same step's estimate.
+// Design. The TPU kernel gathers and scatters with one-hot matmuls on the
+// MXU; here a row reads its cells directly and adds with atomics. The
+// three admission passes need every row's previous pass, and one block
+// orders them with barriers. The roll is decided and done in the same
+// block (param_common.cuh says why), so a call that does not roll is one
+// small launch. The admission is one warp's at N <= 32 (no block barrier)
+// and above that a stable radix sort of the keys, once, and a segmented
+// scan a pass (seg_scan.cuh): O(N) a pass instead of O(N^2).
+//
 // Rows whose slot or index lies outside the sketch are not live and
-// estimate 0 (the reference clamps such gathers and drops such scatters;
-// its callers never pass them).
+// estimate 0, and add nothing. The reference has no single behaviour for
+// them: its XLA core (engine/param.py::_param_decide_jax) clamps such
+// gathers (a non-zero estimate from the last slot or cell; a negative index
+// wraps), admits the row and drops its scatters lane by lane (mode="drop");
+// its Pallas kernel estimates 0, admits the row and adds the lanes that are
+// in range. No caller passes such rows: request_params_token maps unknown
+// rules to slot -1 and hashes indices into range.
 
 #include "param_common.cuh"
 
@@ -41,7 +50,8 @@ __global__ void __launch_bounds__(param::THREADS, 1)
                       int B, int D, int W, int now, int cur, int cur_start,
                       int interval_ms) {
   __shared__ param::Smem sm;
-  param::load_ok(sm, starts, B, now, cur, cur_start, interval_ms);
+  param::begin(sm, reinterpret_cast<uint32_t*>(counts), starts, P, B,
+               (long long)D * W, now, cur, cur_start, interval_ms);
 
   for (int i = threadIdx.x; i < r.N; i += blockDim.x) {
     const int s = r.slot[i];
@@ -65,9 +75,8 @@ __global__ void __launch_bounds__(param::THREADS, 1)
     r.key[i] = param::mix_key(safe, ix, D);
     r.live[i] = (r.valid[i] && s >= 0 && inside) ? 1 : 0;
   }
-  __syncthreads();
 
-  param::admit_passes(r, sm);
+  param::admit(r, sm);
 
   for (int i = threadIdx.x; i < r.N; i += blockDim.x) {
     if (!r.admit[i]) continue;  // admitted rows are live: slot in range
@@ -86,19 +95,16 @@ extern "C" int sentinel_cms_decide(
     const int32_t* slot, const int32_t* idx, const int32_t* acq,
     const float* thr, const uint8_t* valid, int N, int now, int cur,
     int cur_start, int interval_ms, uint8_t* admit, int32_t* est,
-    int32_t* work_key, uint8_t* work_flags, void* stream) {
-  if (P < 1 || B < 1 || B > param::MAX_B || D < 1 || W < 1 || N < 1 ||
-      cur < 0 || cur >= B)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  int err = param::roll_launch((uint32_t*)counts, starts, P, B,
-                               (long long)D * W, cur, cur_start, st);
+    int32_t* work, long long work_words, void* stream) {
+  int err = param::check_args(P, B, D, W, N, cur, work_words);
   if (err != 0) return err;
-  param::Rows r{N,     slot,  idx,
-                acq,   thr,   valid,
-                admit, est,   (uint32_t*)work_key,
-                work_flags, work_flags + N, work_flags + 2 * (long long)N};
-  cms_decide_kernel<<<1, param::THREADS, 0, st>>>(
-      r, counts, starts, P, B, D, W, now, cur, cur_start, interval_ms);
+  err = param::configure(cms_decide_kernel);
+  if (err != 0) return err;
+  const param::Rows r =
+      param::make_rows(N, slot, idx, acq, thr, valid, admit, est, work);
+  cms_decide_kernel<<<1, param::THREADS, param::dyn_smem(N),
+                      (cudaStream_t)stream>>>(r, counts, starts, P, B, D, W,
+                                              now, cur, cur_start,
+                                              interval_ms);
   return (int)cudaGetLastError();
 }

@@ -8,9 +8,10 @@
 // counters; a merged pair holds v as (v % CAP, -(v / CAP) - 1), the negative
 // high cell being the merge flag):
 //
-//   1. the roll (launch 1, param::roll_kernel): zeroed cells are unmerged
-//      zeros, so the roll clears merge state with the counts;
-//   2. per row (launch 2, salsa_decide_kernel): the estimate over decoded
+//   1. the roll (param::begin, in the call's one launch of one block):
+//      zeroed cells are unmerged zeros, so the roll clears merge state with
+//      the counts;
+//   2. per row (salsa_decide_kernel): the estimate over decoded
 //      gathers (a merged pair reads its joint value at either cell), the
 //      in-batch prefix admission, and the update of the pairs the admitted
 //      rows address: their adds, routed to the even cell when the pair is
@@ -37,22 +38,22 @@
 // (chip_smoke.py::param_bytes); the arithmetic is the prefix admission.
 // Work after the admission is O(N * D).
 //
-// Design. As csrc/cms.cu for launches 1 and 2 (one block, O(N^2) prefix a
-// pass). Summing the adds of one pair before its single encode uses `delta`,
-// an int32 [P, D, 2W] buffer that is ALL ZERO between calls: admitted rows
-// atomicAdd their routed acquire into it; after a barrier each admitted
-// (row, lane) takes its pair's two sums with one 64-bit atomicExch(..., 0)
-// (a pair is 8-byte aligned). The one thread that gets a non-zero pair
-// encodes it; the others, and pairs whose adds sum to zero, skip (the
-// encode is then the identity). So the buffer is zero again when the launch
-// ends, with no memset and no whole-plane pass; the wrapper allocates it
-// once per sketch shape. Routing reads the merge flags before the barrier
-// and the stores come after it, so it sees the pre-update flags the
-// reference routes by. The TPU kernel's lane rolls that pair cells on
-// full-width vectors are a Mosaic idiom; here a thread owns a pair as one
-// 32-bit word (little-endian: the even cell is the low half). Floor division
-// and modulo by CAP (a power of two) are an arithmetic shift and a mask,
-// which match the reference's floor semantics for any sign.
+// Design. As csrc/cms.cu for the roll and the admission (one launch of one
+// block; param_common.cuh). Summing the adds of one pair before its single
+// encode uses `delta`, an int32 [P, D, 2W] buffer that is ALL ZERO between
+// calls: admitted rows atomicAdd their routed acquire into it; after a barrier
+// each admitted (row, lane) takes its pair's two sums with one 64-bit
+// atomicExch(..., 0) (a pair is 8-byte aligned). The one thread that gets a
+// non-zero pair encodes it; the others, and pairs whose adds sum to zero, skip
+// (the encode is then the identity). So the buffer is zero again when the
+// launch ends, with no memset and no whole-plane pass; the wrapper allocates
+// it once per sketch shape. Routing reads the merge flags before the barrier
+// and the stores come after it, so it sees the pre-update flags the reference
+// routes by. The TPU kernel's lane rolls that pair cells on full-width vectors
+// are a Mosaic idiom; here a thread owns a pair as one 32-bit word (little-
+// endian: the even cell is the low half). Floor division and modulo by CAP (a
+// power of two) are an arithmetic shift and a mask, which match the
+// reference's floor semantics for any sign.
 // Rows whose slot or index lies outside the sketch are not live and
 // estimate 0 (the reference's XLA core clamps such gathers and drops such
 // scatters lane by lane, its Pallas kernel estimates 0 and still adds the
@@ -73,7 +74,9 @@ __global__ void __launch_bounds__(param::THREADS, 1)
                         int C, int now, int cur, int cur_start,
                         int interval_ms) {
   __shared__ param::Smem sm;
-  param::load_ok(sm, starts, B, now, cur, cur_start, interval_ms);
+  // a pair is one 32-bit word: D * C / 2 words per slot and bucket
+  param::begin(sm, reinterpret_cast<uint32_t*>(counts), starts, P, B,
+               (long long)D * (C / 2), now, cur, cur_start, interval_ms);
 
   for (int i = threadIdx.x; i < r.N; i += blockDim.x) {
     const int s = r.slot[i];
@@ -102,9 +105,8 @@ __global__ void __launch_bounds__(param::THREADS, 1)
     r.key[i] = param::mix_key(safe, ix, D);
     r.live[i] = (r.valid[i] && s >= 0 && inside) ? 1 : 0;
   }
-  __syncthreads();
 
-  param::admit_passes(r, sm);
+  param::admit(r, sm);
 
   // Sum the admitted adds per cell. The current plane is not stored to
   // before the barrier, so its merge flags are the pre-update ones.
@@ -165,20 +167,15 @@ extern "C" int sentinel_salsa_decide(
     int W, const int32_t* slot, const int32_t* idx, const int32_t* acq,
     const float* thr, const uint8_t* valid, int N, int now, int cur,
     int cur_start, int interval_ms, uint8_t* admit, int32_t* est,
-    int32_t* work_key, uint8_t* work_flags, int32_t* delta, void* stream) {
-  if (P < 1 || B < 1 || B > param::MAX_B || D < 1 || W < 1 || N < 1 ||
-      cur < 0 || cur >= B)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  // a pair is one 32-bit word: D * W words per slot and bucket
-  int err = param::roll_launch((uint32_t*)counts, starts, P, B,
-                               (long long)D * W, cur, cur_start, st);
+    int32_t* work, long long work_words, int32_t* delta, void* stream) {
+  int err = param::check_args(P, B, D, W, N, cur, work_words);
   if (err != 0) return err;
-  param::Rows r{N,     slot,  idx,
-                acq,   thr,   valid,
-                admit, est,   (uint32_t*)work_key,
-                work_flags, work_flags + N, work_flags + 2 * (long long)N};
-  salsa_decide_kernel<<<1, param::THREADS, 0, st>>>(
+  err = param::configure(salsa_decide_kernel);
+  if (err != 0) return err;
+  const param::Rows r =
+      param::make_rows(N, slot, idx, acq, thr, valid, admit, est, work);
+  salsa_decide_kernel<<<1, param::THREADS, param::dyn_smem(N),
+                        (cudaStream_t)stream>>>(
       r, counts, starts, merges, delta, P, B, D, 2 * W, now, cur, cur_start,
       interval_ms);
   return (int)cudaGetLastError();

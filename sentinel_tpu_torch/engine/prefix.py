@@ -12,8 +12,9 @@
   ``torch.set_float32_matmul_precision("highest")``), the counterpart of the
   reference's ``Precision.HIGHEST``.
 - ``sort``: one stable argsort per builder, then the grouped prefix.
-- ``pallas``: the reference's tiled prefix kernel, ported as the CUDA
-  kernel ``ops/prefix_cuda.py`` (its plain version on CPU tensors).
+- ``pallas``: the reference's tiled prefix kernel, ported as two CUDA
+  kernels (``ops/prefix_cuda.py``; their plain versions on CPU tensors):
+  one plan per builder (a stable sort of the keys), one O(N) apply per call.
 
 Contributions must be non-negative integer-valued float32.
 """
@@ -60,12 +61,13 @@ def segment_prefix_builder(keys: torch.Tensor, impl: str = "auto"):
         return _grouped_prefix(keys)
 
     if impl == "pallas":
-        from sentinel_tpu_torch.ops.prefix_cuda import segment_prefix
+        from sentinel_tpu_torch.ops import prefix_cuda
 
-        keys32 = keys.to(torch.int32).contiguous()
+        plan = prefix_cuda.segment_prefix_plan(
+            keys.to(torch.int32).contiguous())
 
         def prefix_kernel(contrib: torch.Tensor) -> torch.Tensor:
-            return segment_prefix(keys32, contrib)
+            return prefix_cuda.segment_prefix_apply(plan, contrib)
 
         return prefix_kernel
 

@@ -2,8 +2,8 @@
 (port of ``sentinel_tpu/ops/cms_pallas.py``).
 
 - :func:`cms_decide_update` — the kernel's wrapper. On CUDA tensors it
-  launches ``csrc/cms.cu`` (a roll launch, then the decide launch) and adds
-  one to ``LAUNCHES["cms_decide_update"]``; on CPU tensors it runs
+  launches ``csrc/cms.cu`` (one launch of one block, the roll included) and
+  adds one to ``LAUNCHES["cms_decide_update"]``; on CPU tensors it runs
   :func:`cms_decide_update_plain`. It never falls back from the kernel.
 - :func:`cms_decide_update_plain` — the same function in torch ops, op for
   op the reference's XLA core (``engine/param.py::_param_decide_jax``). It
@@ -140,18 +140,28 @@ _C_ARGTYPES = (
     + [ctypes.c_int] * 4  # P B D W
     + [ctypes.c_void_p] * 5  # slot idx acquire threshold valid
     + [ctypes.c_int] * 5  # N now cur cur_start interval_ms
-    + [ctypes.c_void_p] * 5  # admit est work_key work_flags stream
+    + [ctypes.c_void_p] * 3  # admit est work
+    + [ctypes.c_longlong, ctypes.c_void_p]  # work words, stream
 )
 
 
-def _kernel_lib():
+def load_param_kernel(name: str, entry: str, argtypes):
+    """``(kernel entry, workspace words of N rows)`` of ``csrc/<name>.cu``,
+    typed for ctypes."""
     from sentinel_tpu_torch.ops import _build
 
-    fn = _build.load("cms").sentinel_cms_decide
+    lib = _build.load(name)
+    fn, words = getattr(lib, entry), lib.sentinel_param_work_words
     if fn.argtypes is None:
-        fn.argtypes = _C_ARGTYPES
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    return fn
+        words.argtypes = [ctypes.c_int]
+        words.restype = ctypes.c_longlong
+    return fn, words
+
+
+def _kernel_lib():
+    return load_param_kernel("cms", "sentinel_cms_decide", _C_ARGTYPES)
 
 
 def check_rows(fn: str, rule_slot, idx, acquire, threshold, valid, D,
@@ -209,15 +219,16 @@ def cms_decide_update(
     cur, cur_start = ring(now, bucket_ms, B)
     admit = torch.empty((N,), dtype=torch.bool, device=device)
     est = torch.empty((N,), dtype=torch.int32, device=device)
-    work_key = torch.empty((N,), dtype=torch.int32, device=device)
-    work_flags = torch.empty((3, N), dtype=torch.uint8, device=device)
-    err = _kernel_lib()(
+    fn, work_words = _kernel_lib()
+    words = work_words(N)
+    work = torch.empty((words,), dtype=torch.int32, device=device)
+    err = fn(
         counts.data_ptr(), starts.data_ptr(), P, B, D, W,
         rule_slot.data_ptr(), idx.data_ptr(), acquire.data_ptr(),
         threshold.data_ptr(), valid.data_ptr(),
         N, now, cur, cur_start, bucket_ms * B,
-        admit.data_ptr(), est.data_ptr(), work_key.data_ptr(),
-        work_flags.data_ptr(), stream_of(device),
+        admit.data_ptr(), est.data_ptr(), work.data_ptr(), words,
+        stream_of(device),
     )
     raise_on(fn_name, err)
     LAUNCHES[fn_name] += 1

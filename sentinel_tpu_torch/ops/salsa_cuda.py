@@ -8,8 +8,8 @@ current-bucket plane is re-encoded with merge-on-saturation, counting each
 newly merged pair into ``merges``.
 
 - :func:`salsa_decide_update` — the kernel's wrapper. On CUDA tensors it
-  launches ``csrc/salsa.cu`` (a roll launch, then the decide launch, which
-  re-encodes only the pairs the admitted rows address) and adds one to
+  launches ``csrc/salsa.cu`` (one launch of one block, the roll included,
+  which re-encodes only the pairs the admitted rows address) and adds one to
   ``LAUNCHES["salsa_decide_update"]``; on CPU tensors it runs
   :func:`salsa_decide_update_plain`. It never falls back from the kernel.
 - :func:`salsa_decide_update_plain` — the same function in torch ops, op
@@ -39,6 +39,7 @@ from sentinel_tpu_torch.ops.cms_cuda import (
     admit_rows,
     bucket_ok,
     check_rows,
+    load_param_kernel,
     mix_keys,
     ring,
     roll_,
@@ -134,18 +135,14 @@ _C_ARGTYPES = (
     + [ctypes.c_int] * 4  # P B D W (pairs per lane)
     + [ctypes.c_void_p] * 5  # slot idx acquire threshold valid
     + [ctypes.c_int] * 5  # N now cur cur_start interval_ms
-    + [ctypes.c_void_p] * 6  # admit est work_key work_flags delta stream
+    + [ctypes.c_void_p] * 3  # admit est work
+    + [ctypes.c_longlong]  # work words
+    + [ctypes.c_void_p] * 2  # delta stream
 )
 
 
 def _kernel_lib():
-    from sentinel_tpu_torch.ops import _build
-
-    fn = _build.load("salsa").sentinel_salsa_decide
-    if fn.argtypes is None:
-        fn.argtypes = _C_ARGTYPES
-        fn.restype = ctypes.c_int
-    return fn
+    return load_param_kernel("salsa", "sentinel_salsa_decide", _C_ARGTYPES)
 
 
 def salsa_decide_update(
@@ -191,8 +188,9 @@ def salsa_decide_update(
     cur, cur_start = ring(now, bucket_ms, B)
     admit = torch.empty((N,), dtype=torch.bool, device=device)
     est = torch.empty((N,), dtype=torch.int32, device=device)
-    work_key = torch.empty((N,), dtype=torch.int32, device=device)
-    work_flags = torch.empty((3, N), dtype=torch.uint8, device=device)
+    fn, work_words = _kernel_lib()
+    words = work_words(N)
+    work = torch.empty((words,), dtype=torch.int32, device=device)
     key = _delta_key(counts)
     delta = _DELTAS.get(key)
     if delta is None:
@@ -200,14 +198,14 @@ def salsa_decide_update(
             del _DELTAS[next(iter(_DELTAS))]
         delta = _DELTAS[key] = torch.zeros((P, D, C), dtype=torch.int32,
                                            device=device)
-    err = _kernel_lib()(
+    err = fn(
         counts.data_ptr(), starts.data_ptr(), merges.data_ptr(),
         P, B, D, C // 2,
         rule_slot.data_ptr(), idx.data_ptr(), acquire.data_ptr(),
         threshold.data_ptr(), valid.data_ptr(),
         N, now, cur, cur_start, bucket_ms * B,
-        admit.data_ptr(), est.data_ptr(), work_key.data_ptr(),
-        work_flags.data_ptr(), delta.data_ptr(), stream_of(device),
+        admit.data_ptr(), est.data_ptr(), work.data_ptr(), words,
+        delta.data_ptr(), stream_of(device),
     )
     if err != 0:
         _DELTAS.pop(key, None)  # it may no longer be all zero

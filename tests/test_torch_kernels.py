@@ -143,9 +143,13 @@ PARAM_LAUNCHES = {"cms": (cms_cuda.LAUNCHES, "cms_decide_update"),
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("N", [8, 300, 2048])
+@pytest.mark.parametrize(
+    "N", [1, 8, 32, 33, 64, 65, 300, 2048, 4097, 8192, 8193])
 @pytest.mark.parametrize("sketch", ["cms", "salsa"])
 def test_param_kernel_matches_plain(cuda, sketch, N):
+    """Every admission path and its edges: one warp (32 and 64 rows), the
+    sort in shared memory, in the global workspace above 8192 rows; the
+    steps roll written buckets."""
     cfg = ParamConfig(sketch=sketch)
     counter, name = PARAM_LAUNCHES[sketch]
     before = counter[name]
@@ -156,7 +160,8 @@ def test_param_kernel_matches_plain(cuda, sketch, N):
     assert not r.mismatches, r.mismatches[:10]
     assert r.max_abs_err == 0.0
     assert counter[name] - before == len(nows)
-    assert r.reached == set(PC.coverage_for(sketch)), r.reached
+    assert r.reached == set(PC.coverage_for(sketch, N)), r.reached
+    assert "rolled_written_bucket" in r.reached
 
 
 @pytest.mark.gpu
@@ -182,18 +187,51 @@ def test_param_wrappers_reject_bad_inputs(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n", [1, 300, 5000])
+@pytest.mark.parametrize(
+    "n", [1, 31, 32, 33, 1025, 5000, 16384, 16385, 65536])
 def test_prefix_kernel_matches_plain(cuda, n):
+    """The plan kernel bitwise against its plain version and the apply
+    kernel against the mask form, on every key shape; the edges of the
+    one-block plan (16384 rows) and apply (1024 items)."""
     rng = np.random.default_rng(n)
-    keys = torch.as_tensor(DC.ZipfIds(4096)(rng, n).astype(np.int32),
+    for shape, keys_np in DC.prefix_key_shapes(rng, n).items():
+        keys = torch.as_tensor(keys_np, device=cuda)
+        contrib = torch.as_tensor(rng.integers(0, 4, n).astype(np.float32),
+                                  device=cuda)
+        before = dict(prefix_cuda.LAUNCHES)
+        plan = prefix_cuda.segment_prefix_plan(keys)
+        got = prefix_cuda.segment_prefix_apply(plan, contrib)
+        torch.cuda.synchronize()
+        want_plan = prefix_cuda.segment_prefix_plan_plain(keys)
+        assert torch.equal(plan.order, want_plan.order), shape
+        assert torch.equal(got, prefix_cuda.segment_prefix_plain(
+            keys, contrib)), shape
+        assert {k: v - before[k] for k, v in prefix_cuda.LAUNCHES.items()} \
+            == {"segment_prefix_plan": 1, "segment_prefix_apply": 1}
+
+
+@pytest.mark.gpu
+def test_wrappers_never_sort_with_a_library_call(cuda, monkeypatch):
+    """On CUDA tensors the plan, the apply and the param kernels' wrappers
+    reach no library sort."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("a library sort was called")
+
+    for name in ("sort", "argsort", "msort"):
+        monkeypatch.setattr(torch, name, refuse, raising=False)
+        monkeypatch.setattr(torch.Tensor, name, refuse, raising=False)
+    rng = np.random.default_rng(2)
+    keys = torch.as_tensor(rng.integers(-5, 5, 3000).astype(np.int32),
                            device=cuda)
-    contrib = torch.as_tensor(rng.integers(0, 4, n).astype(np.float32),
-                              device=cuda)
-    before = prefix_cuda.LAUNCHES["segment_prefix"]
-    got = prefix_cuda.segment_prefix(keys, contrib)
+    contrib = torch.ones(3000, device=cuda)
+    prefix_cuda.segment_prefix(keys, contrib)
+    for sketch in ("cms", "salsa"):
+        cfg = ParamConfig(sketch=sketch)
+        kernel, _ = PC.step_fns(sketch)
+        cols = PC.to_device(PC.kernel_batches(cfg, 3000, seed=1)[0][0], cuda)
+        kernel(make_param_state(cfg, device=cuda), cols, 20_040,
+               cfg.bucket_ms)
     torch.cuda.synchronize()
-    assert torch.equal(got, prefix_cuda.segment_prefix_plain(keys, contrib))
-    assert prefix_cuda.LAUNCHES["segment_prefix"] - before == 1
 
 
 def test_param_batches_are_seeded_and_shaped():
@@ -333,7 +371,7 @@ def test_repeat_check_catches_a_launch_that_differs(monkeypatch):
     assert mismatches == ["step 0: repeat 1 differs in ['passed']"]
 
 
-@pytest.mark.parametrize("N", [8, 64, 300])
+@pytest.mark.parametrize("N", [1, 8, 33, 64, 65, 300])
 @pytest.mark.parametrize("sketch", ["cms", "salsa"])
 def test_param_workloads_reach_every_case(sketch, N):
     """On the CPU the wrappers run the plain versions: the seeded steps
@@ -344,9 +382,9 @@ def test_param_workloads_reach_every_case(sketch, N):
     r = PC.check_param_steps(cfg, make_param_state(cfg, device="cpu"),
                              batches, nows)
     assert not r.mismatches and r.max_abs_err == 0.0
-    assert r.reached == set(PC.coverage_for(sketch)), \
-        set(PC.coverage_for(sketch)) - r.reached
-    assert r.admitted > 0 and r.blocked > 0
+    assert r.reached == set(PC.coverage_for(sketch, N)), \
+        set(PC.coverage_for(sketch, N)) - r.reached
+    assert r.admitted > 0 and (r.blocked > 0 or N < 8)
 
 
 def test_untouched_pair_check_has_teeth():

@@ -13,6 +13,9 @@ wraps onto columns that hold counts: one step reads buckets about to expire
 (``expiring > 0``), later ones roll a written column and mask an aged one.
 :func:`check_steps` reports which of those the run reached.
 
+:func:`prefix_key_shapes` gives the key vectors the segment-prefix kernels
+are held on.
+
 :func:`adversarial_batches` builds grouped batches by their segment heads,
 shaped to break a kernel whose blocks each own the segments that start in a
 nominal range of ``chunk`` rows (``decide_cuda.launch_grid``): heads exactly
@@ -93,6 +96,34 @@ class ZipfIds:
         return np.minimum(
             np.searchsorted(self.cdf, rng.random(size)), self.cdf.size - 1
         ).astype(np.int64)
+
+
+# the key vectors the segment-prefix kernels are held on (prefix_key_shapes)
+PREFIX_KEY_SHAPES = ("zipf", "one_key", "distinct", "low8_equal",
+                     "low16_equal", "extremes")
+INT32_MIN, INT32_MAX = -2**31, 2**31 - 1
+
+
+def prefix_key_shapes(rng: np.random.Generator, n: int) -> dict:
+    """``{shape: [n] int32 keys}``, batch order unsorted: bounded-Zipf flow
+    ids; one key for every row; a key per row; keys that agree in their low
+    8 bits, or low 16 bits, and differ only above (one radix digit groups
+    nothing); and negative keys with ``INT32_MIN`` and ``INT32_MAX``."""
+    groups = max(2, n // 4)
+    hi = rng.integers(0, groups, size=n).astype(np.int64)
+    extremes = np.array([INT32_MIN, INT32_MIN + 1, -1, 0, 1, INT32_MAX - 1,
+                         INT32_MAX], np.int64)
+    mixed = np.where(rng.random(n) < 0.5, rng.choice(extremes, size=n),
+                     rng.integers(INT32_MIN, 0, size=n))
+    shapes = {
+        "zipf": ZipfIds(4096)(rng, n),
+        "one_key": np.full(n, 7),
+        "distinct": rng.permutation(n),
+        "low8_equal": (hi << 8) | 0xA5,
+        "low16_equal": ((hi << 16) | 0xBEEF) - 2**31,
+        "extremes": mixed,
+    }
+    return {k: v.astype(np.int32) for k, v in shapes.items()}
 
 
 def grouped_batch(config: EngineConfig, rng: np.random.Generator,

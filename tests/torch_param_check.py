@@ -73,10 +73,17 @@ SALSA_COVERAGE = COVERAGE + (
     "admitted_zero_acquire",
 )
 
+# what a batch of fewer than 8 rows can reach: one row a step, cycling
+# through a live row, a row without a rule and a padded row
+SMALL_COVERAGE = ("rolled_written_bucket", "masked_aged_bucket",
+                  "padded_rows", "no_rule_rows")
+
 _MASK64 = np.uint64(0xFFFFFFFFFFFFFFFF)
 
 
-def coverage_for(sketch: str) -> Tuple[str, ...]:
+def coverage_for(sketch: str, n: int = 8) -> Tuple[str, ...]:
+    if n < 8:
+        return SMALL_COVERAGE
     return SALSA_COVERAGE if sketch == "salsa" else COVERAGE
 
 
@@ -406,15 +413,30 @@ def check_param_steps(config: ParamConfig, state: ParamState, batches,
     return StepCheck(max_err, mismatches, st_k, reached, admitted, blocked)
 
 
+def _small_batch(cols: Dict[str, np.ndarray], n: int,
+                 step: int) -> Dict[str, np.ndarray]:
+    """``n < 8`` rows of an 8-row batch, starting at its first live row, row
+    without a rule or padded row as ``step % 3`` says (wrapping)."""
+    valid, slot = cols["valid"], cols["rule_slot"]
+    kinds = (valid & (slot >= 0), valid & (slot < 0), ~valid)
+    first = int(np.argmax(kinds[step % 3]))
+    rows = (first + np.arange(n)) % valid.size
+    return {k: v[rows] for k, v in cols.items()}
+
+
 def kernel_batches(config: ParamConfig, n: int, seed: int):
-    """The batches and step times of one :func:`check_param_steps` run."""
+    """The batches and step times of one :func:`check_param_steps` run.
+    Below 8 rows a step's batch is cut from an 8-row one
+    (:data:`SMALL_COVERAGE` says what such steps reach)."""
     rng = np.random.default_rng(seed)
     rules = ParamRules(config.max_param_rules, rng)
     slot_zipf = ZipfIds(config.max_param_rules)
     value_zipf = ZipfIds(VALUES)
     nows = [T0_MS + dt for dt in STEP_OFFSETS_MS]
-    batches = [kernel_batch(config, rng, slot_zipf, value_zipf, rules, n, k)
-               for k in range(len(nows))]
+    batches = [kernel_batch(config, rng, slot_zipf, value_zipf, rules,
+                            max(n, 8), k) for k in range(len(nows))]
+    if n < 8:
+        batches = [_small_batch(b, n, k) for k, b in enumerate(batches)]
     return batches, nows
 
 
