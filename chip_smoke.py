@@ -64,7 +64,26 @@ Builds the port's CUDA kernels from ``sentinel_tpu_torch/csrc`` (one
    ``request_params_token`` calls per sketch and counts the CUDA kernels
    each call launched, the param kernel's apart from the torch ops around
    it: exactly one param kernel a call;
-8. prints the timings, the card's name and power limit, one
+8. drives completion reports and circuit breaking at the flow
+   configuration of phase 3 with 10,000 breakers (every 10th flow; slow
+   ratio, error ratio and error count in turn; a third of them sick): a
+   service on the decide kernel and one with ``decide_impl="xla"`` take the
+   same seeded stream (``tests/torch_outcome_check.py``) over more than 8 s
+   of engine clock, each round pulls of 64, 1024, 16384 and a fused 65536
+   rows interleaved with ``report_outcomes`` batches of 64, 1024 and 16384
+   rows (about 1% invalid). Verdicts and report counts must be equal at
+   every step, the flow, outcome and breaker planes (every plane) at the
+   end of every round, ``breaker_stats`` every round and ``outcome_stats``
+   at the end; the stream must trip, probe, close and reopen breakers, and
+   the decide kernel must launch once per device step; then a lease
+   sequence on 1,000 flows (grant, pull, renew, return, expiry) must give
+   equal results and flow planes; then it times ``report_outcomes`` (host
+   p50 / p99) and the outcome step (CUDA events, with and without the
+   breaker columns, beside its byte bound), after checking under torch's
+   sync debug mode that the step makes no call that waits for the device;
+   after every other phase a traced report counts the CUDA kernels a report
+   launches;
+9. prints the timings, the card's name and power limit, one
    ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
 
 Any failed check raises and exits non-zero. With no CUDA device, or run from
@@ -106,6 +125,15 @@ PROFILED_PARAM_CALLS = 20
 PARAM_REQUESTS = 600  # per sketch, half before and half after a reload
 PARAM_ADVANCES_MS = (1, 2, 4, 9)  # engine clock between param requests
 SKETCHES = ("cms", "salsa")
+# phase 8: one round of pulls and reports (a fused 4-frame pull), 500 ms of
+# engine clock; 17 rounds span 8.5 s
+OUTCOME_PLAN = (("pull", 64), ("report", 64), ("pull", 1024),
+                ("report", 1024), ("pull", 16384), ("report", 16384),
+                ("pull", 4 * 16384), ("report", 16384))
+OUTCOME_ADVANCES_MS = (20, 60, 35, 90, 45, 120, 60, 70)
+OUTCOME_ROUNDS = 17
+REPORT_SIZES = (64, 1024, 16384)
+LEASE_FLOWS = 1000
 
 
 def log(msg: str) -> None:
@@ -710,6 +738,288 @@ def param_call_kernels(torch, sketch, svc, mc, stream):
     return out
 
 
+def outcome_bytes(k: int, k_valid: int, breakers: bool, rolled: bool,
+                  n_flows: int, n_channels: int) -> int:
+    """Bytes one outcome step must move: the [K] report columns (slot, rt,
+    exception, valid) read once; per valid row a read-modify-write of each
+    int32 cell it adds to (RT_SUM, COMPLETE, EXCEPTION, the histogram cell,
+    and SLOW with breakers); with breakers, per row the flow's cutoff,
+    strategy, breaker state and probe ticket read; and, when the bucket
+    turns, the current [F, C] column zeroed."""
+    cells = 5 if breakers else 4
+    nbytes = k * (4 + 4 + 4 + 1) + k_valid * cells * 4 * 2
+    if breakers:
+        nbytes += k * (4 + 1 + 1 + 4)
+    if rolled:
+        nbytes += n_flows * n_channels * 4
+    return nbytes
+
+
+def phase_outcome(torch, dev):
+    """Completion reports and circuit breaking at full size: the decide
+    kernel's service against the torch-ops service on one stream, a lease
+    sequence, then the report path's times. Returns the results and a
+    function that traces reports (called last)."""
+    import torch_kernel_check as DC
+    import torch_outcome_check as OC
+
+    from sentinel_tpu_torch.cluster.token_service import DefaultTokenService
+    from sentinel_tpu_torch.core import clock
+    from sentinel_tpu_torch.engine import (
+        ClusterFlowRule,
+        DegradeRule,
+        DegradeStrategy,
+        EngineConfig,
+        ThresholdMode,
+        outcome_step_donating,
+    )
+    from sentinel_tpu_torch.engine.state import N_OUTCOME_CHANNELS, make_state
+    from sentinel_tpu_torch.ops import decide_cuda as K
+
+    mc = clock.ManualClock(1_700_000_000_040)
+    prev = clock.set_clock(mc)
+    try:
+        cfg = EngineConfig(max_flows=F, max_namespaces=NS,
+                           batch_size=SIZES[-1])
+        rules = service_rules(ClusterFlowRule, ThresholdMode)
+        degrade = [DegradeRule(**{**d, "strategy": DegradeStrategy(
+            d["strategy"])}) for d in OC.degrade_specs(
+                range(F), lambda fid: f"ns{fid % NS}")]
+        svc = DefaultTokenService(cfg, device=dev)
+        ref = DefaultTokenService(cfg._replace(decide_impl="xla"),
+                                  device=dev)
+        for s in (svc, ref):
+            s.load_rules(rules, ns_max_qps=1e9)
+            s.load_degrade_rules(degrade)
+            s.warmup()
+        zipf = DC.ZipfIds(F, alpha=1.1)
+        rng = np.random.default_rng(31)
+        edges = OC.BreakerEdges()
+        steps = 0
+        verdicts = {}
+
+        def check_op(kind, r, i, n, outs):
+            nonlocal steps
+            if kind == "pull":
+                if not OC.verdicts_equal(outs):
+                    raise AssertionError(f"outcome phase: verdicts differ "
+                                         f"at round {r} step {i} (n={n})")
+                steps += -(-n // cfg.batch_size)
+                for code, c in zip(*np.unique(outs[0][0],
+                                              return_counts=True)):
+                    verdicts[int(code)] = verdicts.get(int(code), 0) + int(c)
+            elif outs[0] != outs[1]:
+                raise AssertionError(f"outcome phase: report counts "
+                                     f"{outs} at round {r} step {i}")
+            edges.update(svc.breaker_stats())
+
+        def planes_equal(label):
+            bad = [f"{pn}.{f}" for pn, pa, pb in zip(
+                       svc._state._fields, svc._state, ref._state)
+                   for f, a, b in zip(pa._fields, pa, pb)
+                   if not torch.equal(a, b)]
+            if bad:
+                raise AssertionError(f"outcome phase: {bad} differ {label}")
+
+        def check_round(r):
+            planes_equal(f"after round {r}")
+            if svc.breaker_stats() != ref.breaker_stats():
+                raise AssertionError(f"breaker_stats differ after round {r}")
+
+        # --- the main path, read through the launch count ----------------
+        t_start = mc.now_ms()
+        K.LAUNCHES.update(dict.fromkeys(K.LAUNCHES, 0))
+        OC.drive((svc, ref), mc.advance, rng, zipf, OUTCOME_PLAN,
+                 OUTCOME_ADVANCES_MS, OUTCOME_ROUNDS, check_op, check_round)
+        launches = K.LAUNCHES["decide_rows"]
+        spanned = mc.now_ms() - t_start
+        torch.cuda.synchronize()
+        if launches != steps:
+            raise AssertionError(f"the decide kernel launched {launches} "
+                                 f"times for {steps} device steps")
+        if spanned < 8000:
+            raise AssertionError(f"the stream spanned only {spanned} ms")
+        o_svc, o_ref = svc.outcome_stats(), ref.outcome_stats()
+        if o_svc != o_ref:
+            raise AssertionError("outcome_stats differ")
+        edges.require(trips=3, probes=3, closes=1, reopens=1)
+        degraded = verdicts.get(12, 0)
+        log(f"outcome: {OUTCOME_ROUNDS} rounds over {spanned} ms, "
+            f"{steps} device steps = {launches} decide launches; verdicts "
+            f"and report counts equal every step, every plane equal every "
+            f"round; breaker edges {edges.counts}; {degraded} DEGRADED "
+            f"verdicts; reported {o_svc['reported']}, dropped "
+            f"{o_svc['dropped']}, {len(o_svc['flows'])} flows with "
+            f"completions in the window")
+
+        # --- leases on 1,000 plain flows ---------------------------------
+        lease_ids = [r.flow_id for r in rules
+                     if r.control_behavior == 0
+                     and r.flow_id % OC.BREAKER_EVERY][:LEASE_FLOWS]
+
+        def both(op, *args):
+            a = getattr(svc, op)(*args)
+            b = getattr(ref, op)(*args)
+            if a != b:
+                raise AssertionError(f"{op}{args}: {a} != {b}")
+            return a
+
+        grants = [both("lease_grant", fid, 20) for fid in lease_ids]
+        ids = np.repeat(np.array(lease_ids, np.int64), 3)
+        if not OC.verdicts_equal([s.request_batch_arrays(ids)
+                                  for s in (svc, ref)]):
+            raise AssertionError("lease pull verdicts differ")
+        mc.advance(150)
+        renewed = [both("lease_renew", g.lease_id, fid, 3, 10)
+                   for g, fid in zip(grants, lease_ids)]
+        for g in renewed[::2]:
+            both("lease_return", g.lease_id, 1)
+        mc.advance(600)  # past the TTL: the other half expires
+        stats = both("lease_stats")
+        planes_equal("after the lease sequence")
+        ok = sum(g.ok for g in grants)
+        expired = sum(g.ok for g in renewed[1::2])
+        if not ok or stats["revoked"] != expired or stats["outstanding"]:
+            raise AssertionError(f"lease sequence: {ok} grants, {expired} "
+                                 f"left to expire, {stats}")
+        log(f"leases on {len(lease_ids)} flows: {ok} granted, renewed, "
+            f"half returned, half expired; equal results and flow planes; "
+            f"{stats}")
+
+        # --- report_outcomes on the host clock ---------------------------
+        host = {}
+        for n in REPORT_SIZES:
+            pool = zipf(rng, n)
+            lat = []
+            for _ in range(30):
+                fl, rt, exc = OC.report_rows(rng, pool, n)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                svc.report_outcomes(fl, rt, exc)
+                lat.append(time.perf_counter() - t0)
+                mc.advance(7)
+            torch.cuda.synchronize()
+            a = np.array(lat) * 1e3
+            host[n] = dict(p50_ms=float(np.percentile(a, 50)),
+                           p99_ms=float(np.percentile(a, 99)))
+            log(f"report_outcomes n={n}: p50 {host[n]['p50_ms']:.3f} ms, "
+                f"p99 {host[n]['p99_ms']:.3f} ms on the host (call only, "
+                f"device idle before each call)")
+
+        # --- the outcome step on the device ------------------------------
+        # A step is ~100-200 small launches: three steps a timed run keep
+        # the host's launch queue from filling while the sleep kernel holds
+        # the stream (a full queue paces the device at the host's rate, and
+        # the events would time the host); the median of 7 such runs.
+        def step_ms(fn):
+            return float(np.median([cuda_ms(fn, 3, torch)
+                                    for _ in range(7)]))
+
+        step = outcome_step_donating(cfg)
+        br = (svc._table.br_strategy, svc._table.br_slow_rt_ms)
+        device = {}
+        st = make_state(cfg, device=dev)
+        for n in REPORT_SIZES:
+            fl, rt, exc = OC.report_rows(rng, zipf(rng, n), n)
+            slots = svc.lookup_slots(fl)
+            valid = (slots >= 0) & np.isfinite(rt) & (rt >= 0) & (
+                rt <= OC.OUTCOME_MAX_RT_MS)
+            cols = [torch.as_tensor(a, device=dev) for a in (
+                np.where(valid, slots, 0).astype(np.int32),
+                np.where(valid, rt, 0).astype(np.int32),
+                (exc & valid).astype(np.int32), valid)]
+            now = [60_040, 60_040 + cfg.n_buckets * cfg.bucket_ms]
+            row = {}
+            for extra in ((), br):
+                # the step makes no call that waits for the device (as far
+                # as torch's sync debug mode sees)
+                step(st, *cols, now[0], *extra)
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    step(st, *cols, now[1], *extra)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+            for label, extra in (("no_breakers", ()), ("breakers", br)):
+                row[label] = step_ms(
+                    lambda: step(st, *cols, now[0], *extra))
+
+                def rolling():
+                    now.reverse()
+                    step(st, *cols, now[0], *extra)
+
+                row[label + "_rolling"] = step_ms(rolling)
+            k_valid = int(valid.sum())
+            nbytes = outcome_bytes(n, k_valid, True, False, F,
+                                   N_OUTCOME_CHANNELS)
+            roll_bytes = outcome_bytes(n, k_valid, True, True, F,
+                                       N_OUTCOME_CHANNELS)
+            ops = 40 * n  # bucket compares, masks, index math per row
+            row.update(
+                bytes=nbytes, rolling_bytes=roll_bytes,
+                bound_ms=max(nbytes / PEAK_BYTES_PER_S,
+                             ops / PEAK_F32_OPS_PER_S) * 1e3,
+                rolling_bound_ms=max(roll_bytes / PEAK_BYTES_PER_S,
+                                     ops / PEAK_F32_OPS_PER_S) * 1e3,
+                no_breakers_bound_ms=outcome_bytes(
+                    n, k_valid, False, False, F, N_OUTCOME_CHANNELS)
+                / PEAK_BYTES_PER_S * 1e3)
+            device[n] = row
+            log(f"outcome step K={n}: no synchronizing call; "
+                f"{row['breakers']:.4f} ms with the "
+                f"breaker columns, {row['no_breakers']:.4f} ms without; a "
+                f"step whose bucket turns {row['breakers_rolling']:.4f} / "
+                f"{row['no_breakers_rolling']:.4f} ms; bound "
+                f"{row['bound_ms']:.6f} ms ({nbytes} B), turning "
+                f"{row['rolling_bound_ms']:.6f} ms ({roll_bytes} B)")
+
+        traced_reports = [OC.report_rows(rng, zipf(rng, SIZES[-1]),
+                                         SIZES[-1]) for _ in range(5)]
+
+        def profiled_reports():
+            """Left to the end: CUDA kernels a 16384-row report launches."""
+            before = clock.set_clock(mc)
+            try:
+                return report_kernels(torch, svc, mc, traced_reports)
+            finally:
+                clock.set_clock(before)
+
+        out = dict(launches=launches, device_steps=steps, spanned_ms=spanned,
+                   edges=dict(edges.counts), lease=stats, host=host,
+                   device=device, verdicts=verdicts)
+        return out, profiled_reports
+    finally:
+        clock.set_clock(prev)
+
+
+def report_kernels(torch, svc, mc, reports):
+    """CUDA kernels a ``report_outcomes`` call launches, from a
+    ``torch.profiler`` trace of ``reports`` (the outcome step is torch ops;
+    no kernel of ``csrc/`` runs in it)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for fl, rt, exc in reports:
+            svc.report_outcomes(fl, rt, exc)
+            mc.advance(3)
+        torch.cuda.synchronize()
+    launched = busy_us = 0.0
+    for evt in prof.key_averages():
+        if str(evt.device_type).endswith("CUDA") and evt.count:
+            launched += evt.count
+            busy_us += evt.self_device_time_total
+    if not launched:
+        raise AssertionError("the traced reports launched no CUDA kernel")
+    out = dict(reports=len(reports), kernels_a_report=launched / len(reports),
+               device_ms_a_report=busy_us / len(reports) / 1e3)
+    log(f"report_outcomes n={reports[0][0].size}: {out['kernels_a_report']:.1f}"
+        f" CUDA kernels and {out['device_ms_a_report']:.4f} ms of device "
+        f"time a report over {len(reports)} traced reports")
+    return out
+
+
 def phase_prefix(torch, dev, cfg, table, state):
     """The segment-prefix plan and apply kernels vs their plain versions on
     every key shape, their times, then an ungrouped decide step with
@@ -870,9 +1180,11 @@ def main() -> int:
     param_service, profiled_params = phase_param_service(torch, dev)
     prefix_launches, prefix_err, prefix_timing, step_ms = phase_prefix(
         torch, dev, cfg, table, state)
+    outcome, profiled_reports = phase_outcome(torch, dev)
     service[SIZES[-1]].update(profiled_pulls())
     for sketch, kernels_a_call in profiled_params().items():
         param_service[sketch]["profiled"] = kernels_a_call
+    outcome["profiled"] = profiled_reports()
 
     ident = gpu_identity()
     main_n = SIZES[-1]
@@ -890,6 +1202,7 @@ def main() -> int:
         "library_ms": None,
         "parity_steps": checked,
         "by_n": {str(n): timing[n] for n in SIZES},
+        "launches_outcome_phase": outcome["launches"],
     }]
     for sketch, name, line in (("cms", "cms_decide_update", 49),
                                ("salsa", "salsa_decide_update", 37)):
@@ -930,6 +1243,7 @@ def main() -> int:
     })
     log(json.dumps({"service": {str(n): v for n, v in service.items()},
                     "param_service": param_service,
+                    "outcome": outcome,
                     "gpu": ident}))
     log(ident)
     log(json.dumps({"kernels": kernels}))

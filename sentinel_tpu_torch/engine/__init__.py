@@ -17,6 +17,7 @@ from sentinel_tpu_torch.engine.rules import (
     build_rule_table,
     drain_pending_clear,
 )
+from sentinel_tpu_torch.engine.outcome import outcome_step_donating
 from sentinel_tpu_torch.engine.state import EngineState, make_state
 
 __all__ = [
@@ -31,4 +32,5 @@ __all__ = [
     "build_rule_table",
     "drain_pending_clear",
     "make_state",
+    "outcome_step_donating",
 ]

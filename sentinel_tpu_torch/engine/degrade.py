@@ -5,7 +5,7 @@ CLOSED → OPEN on a fenced outcome window crossing its threshold; OPEN →
 HALF_OPEN after ``recovery_timeout_ms``, electing the first row of the flow
 in batch order as the probe; a probe whose report never came re-arms after
 another recovery timeout. HALF_OPEN → CLOSED/OPEN is decided by the outcome
-step, which is not part of this slice.
+step (``engine/outcome.py``), from the probe's completion report.
 
 The reference gates the arm behind a ``lax.cond`` on "any breaker row in the
 batch"; here it always runs. With no breaker row every mask is False, so the

@@ -53,6 +53,12 @@ class OutcomeChannel(enum.IntEnum):
 N_RT_BUCKETS = 12
 N_OUTCOME_CHANNELS = int(OutcomeChannel.RT_HIST0) + N_RT_BUCKETS
 
+# Upper edge (ms) of each RT histogram cell, 2^(j+1) - 1; the last cell is
+# open-ended. Host-side p99 reads walk this table.
+RT_BUCKET_UPPER_MS = tuple(
+    (1 << (j + 1)) - 1 for j in range(N_RT_BUCKETS - 1)
+) + (float("inf"),)
+
 
 class ShapingState(NamedTuple):
     """Per-flow traffic-shaper clocks. ``NEVER`` marks a slot whose shaper

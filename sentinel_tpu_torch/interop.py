@@ -9,10 +9,16 @@ field path: ``flow.counts``, ``shaping.lpt``, ``breaker.state`` for an
 comes out of any ``NamedTuple`` tree whose leaves numpy can read, so a JAX
 ``EngineState`` or ``ParamState`` flattens to an identical dict and both
 packages can step the same state.
+
+Rules cross by field name: :func:`port_rule` turns any object with a rule's
+fields (the reference's dataclasses in a state export) into the port's rule
+of that kind.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import enum
 from typing import Dict
 
 import numpy as np
@@ -104,3 +110,25 @@ def param_state_from_numpy(d: Dict[str, np.ndarray],
         field: torch.as_tensor(np.array(d[field]), device=dev)
         for field in ParamState._fields
     })
+
+
+_CASTS = {"int": int, "float": float, "str": str}
+
+
+def port_rule(rule, kind):
+    """The port's rule dataclass ``kind`` (``ClusterFlowRule``,
+    ``DegradeRule``, ``ClusterParamFlowRule``, ...) built from any object
+    that has its fields, read by name: enum fields take the port's enum of
+    the same value, plain int / float / str fields are cast, others are
+    kept. A field the object lacks keeps ``kind``'s default."""
+    vals = {}
+    for f in dataclasses.fields(kind):
+        if not hasattr(rule, f.name):
+            continue
+        v = getattr(rule, f.name)
+        if isinstance(f.default, enum.Enum):
+            v = type(f.default)(int(v))
+        elif f.type in _CASTS:
+            v = _CASTS[f.type](v)
+        vals[f.name] = v
+    return kind(**vals)

@@ -163,12 +163,14 @@ def _scatter_add_(counts, resource_ids, idx, channel_ids, values):
 def roll(spec: WindowSpec, ws: WindowState, now: int) -> WindowState:
     """Ensure the ring slot for ``now`` holds the current window (zero it if
     stale), in place. The stale flag stays on the device: the column is
-    multiplied by 0 or 1, so no host sync is needed."""
+    multiplied by 0 or 1, so no host sync is needed. The new start is
+    written with ``fill_`` (a kernel argument): ``starts[idx] = v`` copies a
+    host scalar, which waits for the stream to drain."""
     idx, cur_start = bucket_index(spec, now)
     stale = ws.starts[idx] != cur_start
     keep = torch.where(stale, 0, 1).to(ws.counts.dtype)
     ws.counts[:, idx, :].mul_(keep)
-    ws.starts[idx] = cur_start
+    ws.starts[idx].fill_(cur_start)
     return ws
 
 

@@ -27,8 +27,9 @@ def _modules():
 def test_port_modules_import_without_jax():
     names = _modules()
     for mod in ("ops.decide_cuda", "ops.cms_cuda", "ops.salsa_cuda",
-                "ops.prefix_cuda", "engine.param", "sketch", "sketch.salsa",
-                "sketch.slim", "cluster.token_service"):
+                "ops.prefix_cuda", "engine.param", "engine.outcome",
+                "sketch", "sketch.salsa", "sketch.slim", "cluster.concurrent",
+                "cluster.token_service"):
         assert f"sentinel_tpu_torch.{mod}" in names, mod
     code = (
         "import importlib, sys\n"
@@ -60,6 +61,7 @@ def _port_sources():
     yield os.path.join(REPO, "chip_smoke.py")
     yield os.path.join(REPO, "tests", "torch_kernel_check.py")
     yield os.path.join(REPO, "tests", "torch_param_check.py")
+    yield os.path.join(REPO, "tests", "torch_outcome_check.py")
 
 
 def test_port_sources_never_name_jax():
