@@ -83,7 +83,26 @@ Builds the port's CUDA kernels from ``sentinel_tpu_torch/csrc`` (one
    sync debug mode that the step makes no call that waits for the device;
    after every other phase a traced report counts the CUDA kernels a report
    launches;
-9. prints the timings, the card's name and power limit, one
+9. serves the port through its front door: the native C++ door (built from
+   ``native/src`` with ``g++``) and ``NativeTokenServer`` over the flow
+   configuration of phase 3 with phase 8's breakers, the default param
+   sketch's 256 rules and three concurrency rules, spoken to over raw
+   sockets with the port's ``protocol`` (``tests/torch_door_check.py``).
+   In lockstep on a manual clock (one connection, one frame at a time:
+   BATCH_FLOW pulls of 64 / 1024 / 16384 rows, the last as four frames,
+   FLOW, PARAM_FLOW, OUTCOME_REPORT behind a PING barrier, lease grant /
+   renew / return, CONCURRENT acquire / release) every reply must equal a
+   twin service on the torch-ops cores, the outcome, breaker and lease
+   stats must be equal after, and the decide and count-min kernels must
+   launch once per device step and per PARAM_FLOW frame; 24 pipelined
+   1024-row frames must each come back once; four clients in a closed loop
+   on the system clock send pulls of each size for a few seconds (served
+   verdicts/s, RTT p50 / p99, the door's fuse depths and overlapped
+   dispatches, no error, one decide launch per frame dispatched);
+   PARAM_FLOW RTT per sketch; then, with the door stopped, a grouped, a
+   fused (depth 4) dispatch and a param step up to its verdict read run
+   under torch's sync debug mode;
+10. prints the timings, the card's name and power limit, one
    ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
 
 Any failed check raises and exits non-zero. With no CUDA device, or run from
@@ -92,8 +111,10 @@ a directory without the package, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import concurrent.futures
 import itertools
 import json
+import multiprocessing
 import os
 import re
 import subprocess
@@ -134,6 +155,14 @@ OUTCOME_ADVANCES_MS = (20, 60, 35, 90, 45, 120, 60, 70)
 OUTCOME_ROUNDS = 17
 REPORT_SIZES = (64, 1024, 16384)
 LEASE_FLOWS = 1000
+# phase 9, the front door: lockstep rounds, closed-loop pull sizes and
+# seconds per size, client threads, PARAM_FLOW frames timed per sketch
+DOOR_ROUNDS = 4
+DOOR_PULLS = SIZES  # 16384 rows go out as four frames
+DOOR_SECONDS = 1.5
+DOOR_CLIENTS = 4
+DOOR_PARAM_REQUESTS = 300
+DOOR_CONC_FLOWS = (200_001, 200_002, 200_003)
 
 
 def log(msg: str) -> None:
@@ -1020,6 +1049,299 @@ def report_kernels(torch, svc, mc, reports):
     return out
 
 
+def door_lease_flows(n: int = 3):
+    """Flows a lease may be granted on: plain (no shaping), no breaker, and
+    cold in the Zipf pulls (high ids), so they keep headroom."""
+    out = []
+    for fid in range(F - 1, 0, -1):
+        if fid % 97 and fid % 89 and fid % 83 and fid % 10:
+            out.append(fid)
+            if len(out) == n:
+                return out
+    raise AssertionError("no leasable flow")
+
+
+def phase_door(torch, dev):
+    """The front door: the port's ``NativeTokenServer`` (the C++ door built
+    from ``native/src``) serving the flow configuration of phase 3 with
+    phase 8's breakers and the default param sketch on the card, spoken to
+    over raw sockets with the port's ``protocol`` (``torch_door_check``).
+
+    1. Lockstep: one connection, one frame at a time on a manual clock;
+       every reply equal to a twin service on the torch-ops cores, and the
+       stats equal after the sequence; the decide and param kernels launch
+       once per device step and per PARAM_FLOW frame.
+    2. The xid probe: 24 pipelined 1024-row frames, every xid once.
+    3. A closed loop on the system clock: one client, then
+       ``DOOR_CLIENTS`` clients, each in a worker process (spawned: no
+       interpreter lock shared with the door's lanes) on its own
+       connection, sending pulls of each size for ``DOOR_SECONDS``; verdicts/s, RTT,
+       the door's fuse depths and overlapped dispatches, no error, and one
+       decide launch per frame of each dispatch.
+    4. PARAM_FLOW RTT per sketch (a second door, with the param rules only,
+       for the other sketch).
+    5. With the door stopped (no reply lane running), a grouped, a fused
+       (depth 4) dispatch and a param step up to its verdict read under
+       torch's sync debug mode: none may wait for the device.
+    """
+    from collections import Counter
+
+    import torch_door_check as DK
+    import torch_kernel_check as DC
+    import torch_outcome_check as OC
+    import torch_param_check as PC
+
+    from sentinel_tpu_torch.cluster import protocol as P
+    from sentinel_tpu_torch.cluster.concurrent import ConcurrentFlowRule
+    from sentinel_tpu_torch.cluster.server_native import NativeTokenServer
+    from sentinel_tpu_torch.cluster.token_service import (
+        ClusterParamFlowRule,
+        DefaultTokenService,
+    )
+    from sentinel_tpu_torch.core import clock
+    from sentinel_tpu_torch.engine import (
+        ClusterFlowRule,
+        DegradeRule,
+        DegradeStrategy,
+        EngineConfig,
+        ThresholdMode,
+    )
+    from sentinel_tpu_torch.engine.param import ParamConfig
+    from sentinel_tpu_torch.metrics.server import server_metrics
+    from sentinel_tpu_torch.native import build as native_build
+    from sentinel_tpu_torch.native import lib as native_lib
+    from sentinel_tpu_torch.ops import cms_cuda, salsa_cuda
+    from sentinel_tpu_torch.ops import decide_cuda as K
+
+    t_phase = t0 = time.perf_counter()
+    native_lib.load()
+    log(f"door: native library {os.path.basename(native_build.target())} "
+        f"ready in {time.perf_counter() - t0:.1f} s")
+    cfg = EngineConfig(max_flows=F, max_namespaces=NS, batch_size=SIZES[-1])
+    rules = service_rules(ClusterFlowRule, ThresholdMode)
+    degrade = [DegradeRule(**{**d, "strategy": DegradeStrategy(
+        d["strategy"])}) for d in OC.degrade_specs(
+            range(F), lambda fid: f"ns{fid % NS}")]
+    specs = PC.service_rule_specs(256, np.random.default_rng(41))
+    param_rules = [ClusterParamFlowRule(s.flow_id, s.count, s.item_thresholds)
+                   for s in specs]
+    param_flows = [s.flow_id for s in specs]
+
+    def service(sketch="cms", twin=False, flows=True):
+        c = cfg._replace(decide_impl="xla") if twin else cfg
+        pc = ParamConfig(sketch=sketch, impl="jax" if twin else "auto")
+        s = DefaultTokenService(c, param_config=pc, device=dev)
+        if flows:
+            s.load_degrade_rules(degrade)
+            s.load_rules(rules, ns_max_qps=1e9)
+        s.load_param_rules(param_rules)
+        s.load_concurrent_rules([ConcurrentFlowRule(
+            f, 2, resource_timeout_ms=600_000) for f in DOOR_CONC_FLOWS])
+        return s
+
+    zipf = DC.ZipfIds(F, alpha=1.1)
+    flow_ids = np.arange(F, dtype=np.int64)
+    # a minute behind the wall clock: the closed loop that follows on the
+    # system clock moves engine time forward only
+    mc = clock.ManualClock(int(time.time() * 1000) - 60_000)
+    prev = clock.set_clock(mc)
+    out = {}
+    svc = service()
+    server = NativeTokenServer(svc, host="127.0.0.1", port=0,
+                               idle_ttl_s=None)
+    try:
+        twin = service(twin=True)
+        server.start()  # warms the service up
+        twin.warmup()
+
+        # --- 1. lockstep, the main path read through the launch counts ---
+        steps = DK.lockstep_plan(
+            np.random.default_rng(43), zipf, flow_ids, DOOR_PULLS,
+            param_flows, door_lease_flows(), DOOR_CONC_FLOWS, DOOR_ROUNDS,
+            P.MAX_BATCH_PER_FRAME, OUTCOME_ADVANCES_MS)
+        conn = DK.RawConn(P, server.port)
+        try:
+            conn.ping(1)
+            t_start = mc.now_ms()
+            K.LAUNCHES.update(dict.fromkeys(K.LAUNCHES, 0))
+            cms_cuda.LAUNCHES.update(dict.fromkeys(cms_cuda.LAUNCHES, 0))
+            t0 = time.perf_counter()
+            replies, counts = DK.run_lockstep(P, conn, steps, mc.advance,
+                                              twin=twin)
+            lockstep_s = time.perf_counter() - t0
+            launches = K.LAUNCHES["decide_rows"]
+            param_launches = cms_cuda.LAUNCHES["cms_decide_update"]
+            pushes = len(conn.pushes)
+        finally:
+            conn.close()
+        if launches != counts["device_steps"]:
+            raise AssertionError(
+                f"door: decide kernel launched {launches} times for "
+                f"{counts['device_steps']} device steps")
+        if param_launches != counts["param_frames"]:
+            raise AssertionError(
+                f"door: param kernel launched {param_launches} times for "
+                f"{counts['param_frames']} PARAM_FLOW frames")
+        for name in ("outcome_stats", "breaker_stats", "lease_stats"):
+            if getattr(svc, name)() != getattr(twin, name)():
+                raise AssertionError(f"door: {name} differs from the twin")
+        kinds = Counter(s["kind"] for s in steps)
+        statuses = Counter()
+        for s, r in zip(steps, replies):
+            if s["kind"] == "batch":
+                statuses.update(P.decode_batch_response(r)[1].tolist())
+        lease = svc.lease_stats()
+        if not (statuses.get(12) and lease["granted"]
+                and svc.outcome_stats()["reported"]):
+            raise AssertionError(
+                f"door: the lockstep reached too little: verdicts "
+                f"{dict(statuses)}, leases {lease}")
+        out["lockstep"] = dict(
+            steps=len(steps), kinds=dict(kinds), spanned_ms=mc.now_ms() -
+            t_start, seconds=lockstep_s, decide_launches=launches,
+            param_launches=param_launches, rows=counts["rows"],
+            verdicts={int(k): int(v) for k, v in sorted(statuses.items())},
+            leases=lease, pushes_seen=pushes)
+        log(f"door lockstep: {len(steps)} frames ({dict(kinds)}) over "
+            f"{out['lockstep']['spanned_ms']} ms equal to the twin service; "
+            f"{launches} decide launches = device steps, {param_launches} "
+            f"param launches = PARAM_FLOW frames; verdicts "
+            f"{out['lockstep']['verdicts']}; leases {lease}")
+
+        # --- the rest runs on the system clock ----------------------------
+        clock.set_clock(prev)
+
+        # --- 2. the xid probe ---------------------------------------------
+        probe = DK.xid_probe(P, server.port, flow_ids, frames=24, rows=1024)
+        if not probe["exact"]:
+            raise AssertionError(f"door: xid probe {probe}")
+        out["xid_probe"] = probe
+        log(f"door xid probe: {probe}")
+
+        # --- 3. the closed loop --------------------------------------------
+        depth_hist = Counter()
+        disp = Counter()
+        lane_put = server._lane_put
+        tracked = server._tracked_dispatch
+
+        def counting_put(q, item, give_up_after_s=None):
+            if isinstance(item, tuple) and len(item) == 3:
+                depth_hist[len(item[1])] += 1
+            return lane_put(q, item, give_up_after_s)
+
+        def counting_dispatch(dispatch, ids, counts_, prios):
+            got = tracked(dispatch, ids, counts_, prios)
+            disp["dispatches"] += 1
+            disp["overlapped"] += bool(got[2])
+            disp["frames"] += -(-len(ids) // cfg.batch_size)
+            return got
+
+        server._lane_put = counting_put
+        server._tracked_dispatch = counting_dispatch
+        sm = server_metrics()
+        stages = {"intake": sm.intake_ms, "dispatch": sm.dispatch_ms,
+                  "materialize": sm.decide_ms, "reply": sm.write_ms}
+        loops = {}
+        pool = multiprocessing.get_context("spawn").Pool(
+            DOOR_CLIENTS, initializer=DK.worker_init,
+            initargs=("torch_kernel_check", P.__name__))
+        try:
+            pool.map(time.sleep, [0.2] * DOOR_CLIENTS)  # workers up
+            for clients, n in itertools.product((1, DOOR_CLIENTS),
+                                                DOOR_PULLS):
+                depth_hist.clear()
+                disp.clear()
+                for h in stages.values():
+                    h.reset()
+                K.LAUNCHES.update(dict.fromkeys(K.LAUNCHES, 0))
+                res = DK.closed_loop(P, server.port, flow_ids, zipf, n,
+                                     DOOR_SECONDS, clients,
+                                     P.MAX_BATCH_PER_FRAME, pool,
+                                     seed=50 + n)
+                label = f"n={n} clients={clients}"
+                if res["errors"]:
+                    raise AssertionError(f"door closed loop {label}: "
+                                         f"{res['errors'][:5]}")
+                if K.LAUNCHES["decide_rows"] != disp["frames"]:
+                    raise AssertionError(
+                        f"door closed loop {label}: "
+                        f"{K.LAUNCHES['decide_rows']} decide launches for "
+                        f"{disp['frames']} frames")
+                res.update(
+                    fuse_depths={int(k): int(v)
+                                 for k, v in sorted(depth_hist.items())},
+                    dispatches=disp["dispatches"],
+                    overlapped_share=(disp["overlapped"] / disp["dispatches"]
+                                      if disp["dispatches"] else None),
+                    decide_launches=K.LAUNCHES["decide_rows"],
+                    # per-lane host ms (histogram bucket edges): a pull's
+                    # intake, a group's dispatch, its materialize, its reply
+                    stage_p50_ms={k: h.quantile(0.5)
+                                  for k, h in stages.items()})
+                loops[f"{n}/{clients}"] = res
+                log(f"door closed loop {label}: "
+                    f"{res['served_verdicts_per_s']:.0f} served verdicts/s "
+                    f"({res['verdicts_per_s']:.0f} answered), RTT p50 "
+                    f"{res['rtt_p50_ms']:.3f} ms, p99 "
+                    f"{res['rtt_p99_ms']:.3f} ms over {res['pulls']} pulls, "
+                    f"{len(res['errors'])} errors; fuse depths "
+                    f"{res['fuse_depths']}, overlapped "
+                    f"{res['overlapped_share']}, stage p50 ms "
+                    f"{res['stage_p50_ms']}, statuses {res['statuses']}")
+        finally:
+            pool.close()
+            pool.join()
+            server._lane_put = lane_put
+            server._tracked_dispatch = tracked
+        out["closed_loop"] = loops
+
+        # --- 4. PARAM_FLOW RTT per sketch -----------------------------------
+        out["param_rtt"] = {"cms": DK.param_rtt(
+            P, server.port, param_flows, DOOR_PARAM_REQUESTS)}
+    finally:
+        clock.set_clock(prev)
+        server.stop()
+    salsa_svc = service("salsa", flows=False)  # it times PARAM_FLOW only
+    salsa = NativeTokenServer(salsa_svc, host="127.0.0.1", port=0,
+                              idle_ttl_s=None)
+    salsa.start()
+    try:
+        salsa_cuda.LAUNCHES.update(dict.fromkeys(salsa_cuda.LAUNCHES, 0))
+        out["param_rtt"]["salsa"] = DK.param_rtt(
+            P, salsa.port, param_flows, DOOR_PARAM_REQUESTS)
+        if salsa_cuda.LAUNCHES["salsa_decide_update"] != DOOR_PARAM_REQUESTS:
+            raise AssertionError("door: SALSA kernel launches != frames")
+    finally:
+        salsa.stop()
+    for sk, v in out["param_rtt"].items():
+        log(f"door PARAM_FLOW ({sk}): RTT p50 {v['rtt_p50_ms']:.3f} ms, "
+            f"p99 {v['rtt_p99_ms']:.3f} ms over {v['requests']} frames")
+
+    # --- 5. dispatch under sync debug mode (no lane running) ---------------
+    rng = np.random.default_rng(47)
+    grouped_ids = zipf(rng, SIZES[-1])
+    fused_ids = zipf(rng, FUSED_DEPTH * SIZES[-1])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        grouped = svc.dispatch_batch_arrays(grouped_ids)
+        fused = svc.dispatch_batch_arrays(fused_ids)
+        admit = svc._param_step(param_flows[0], 1, [11, 12, 13])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for mat, n in ((grouped, SIZES[-1]), (fused, FUSED_DEPTH * SIZES[-1])):
+        if mat()[0].shape != (n,):
+            raise AssertionError("door: a checked dispatch lost rows")
+    bool(admit.all())
+    out["sync_free"] = ["grouped 16384", "fused 4 x 16384",
+                        "param step to its verdict read"]
+    log("door: grouped, fused (depth 4) and param dispatches make no call "
+        "that waits for the device (sync debug mode)")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"door phase: {out['phase_s']:.1f} s")
+    return out
+
+
 def phase_prefix(torch, dev, cfg, table, state):
     """The segment-prefix plan and apply kernels vs their plain versions on
     every key shape, their times, then an ungrouped decide step with
@@ -1155,10 +1477,17 @@ def main() -> int:
 
     from sentinel_tpu_torch.ops import _build
 
+    from sentinel_tpu_torch.native import build as native_build
+
     dev = torch.device("cuda")
     t0 = time.perf_counter()
-    logs = _build.build_all()
-    log(f"built {sorted(logs)} in {time.perf_counter() - t0:.1f} s")
+    # the native door's g++ runs beside the kernels' nvcc processes
+    with concurrent.futures.ThreadPoolExecutor(1) as ex:
+        native = ex.submit(native_build.build)
+        logs = _build.build_all()
+        native_so = native.result()
+    log(f"built {sorted(logs)} and {os.path.basename(native_so)} in "
+        f"{time.perf_counter() - t0:.1f} s")
     for name, text in logs.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "error" in line:
@@ -1181,6 +1510,7 @@ def main() -> int:
     prefix_launches, prefix_err, prefix_timing, step_ms = phase_prefix(
         torch, dev, cfg, table, state)
     outcome, profiled_reports = phase_outcome(torch, dev)
+    door = phase_door(torch, dev)
     service[SIZES[-1]].update(profiled_pulls())
     for sketch, kernels_a_call in profiled_params().items():
         param_service[sketch]["profiled"] = kernels_a_call
@@ -1203,6 +1533,7 @@ def main() -> int:
         "parity_steps": checked,
         "by_n": {str(n): timing[n] for n in SIZES},
         "launches_outcome_phase": outcome["launches"],
+        "launches_door_phase": door["lockstep"]["decide_launches"],
     }]
     for sketch, name, line in (("cms", "cms_decide_update", 49),
                                ("salsa", "salsa_decide_update", 37)):
@@ -1220,6 +1551,9 @@ def main() -> int:
             "bound_by": "bytes",
             "library_ms": None,
             "rolling_ms": main_row["rolling_ms"],
+            "launches_door_phase": (door["lockstep"]["param_launches"]
+                                    if sketch == "cms" else
+                                    DOOR_PARAM_REQUESTS),
             "parity_steps": param_parity[sketch][1],
             "by_n": {str(n): v for n, v in param_timing[sketch].items()},
         })
@@ -1244,6 +1578,7 @@ def main() -> int:
     log(json.dumps({"service": {str(n): v for n, v in service.items()},
                     "param_service": param_service,
                     "outcome": outcome,
+                    "door": door,
                     "gpu": ident}))
     log(ident)
     log(json.dumps({"kernels": kernels}))

@@ -24,10 +24,19 @@ leases (the LEASED column); cluster concurrency (host-only,
 ``import_state``, the reference's dict layout, so either package restores
 the other's capture).
 
+The service also feeds what a front door serves beside the verdicts: the
+rev-7 push plane (``attach_push_hub``: lease recalls, rule epochs, breaker
+flips), ``namespace_index`` for the door's per-tenant shed attribution, and
+per served batch the server metrics' verdict counters
+(``ServerMetrics.record_verdict_batch``, which feeds the timeline and the
+SLO plane) and the flight recorder's device hops.
+
 Later slices: replication deltas, namespace export/import and MOVE (the
-MOVING set is always empty here), the hierarchy tier, push, and the host
-metric and trace planes. Where the reference feeds those, the code below
-leaves a comment marked ``seam``.
+MOVING set is always empty here), the hierarchy tier (``hierarchy`` stays
+None, so the door refuses hierarchy frames as the reference does on a
+server with no coordinator), and the host sinks of completion reports and
+breaker edges. Where the reference feeds those, the code below leaves a
+comment marked ``seam``.
 """
 
 from __future__ import annotations
@@ -43,6 +52,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from sentinel_tpu_torch import chaos as _chaos
 from sentinel_tpu_torch import interop
 from sentinel_tpu_torch._device import DeviceLike, resolve_device
 from sentinel_tpu_torch.cluster.concurrent import (
@@ -55,6 +65,7 @@ from sentinel_tpu_torch.engine.decide import (
     TokenStatus,
     decide_donating,
     decide_fused_donating,
+    host_to_device,
     make_batch,
     make_batch_into,
     alloc_fused_batch,
@@ -85,8 +96,12 @@ from sentinel_tpu_torch.engine.state import (
     flow_spec,
     make_state,
 )
+from sentinel_tpu_torch.metrics.server import server_metrics
 from sentinel_tpu_torch.stats import window as W
 from sentinel_tpu_torch.stats.window import NEVER, rebase
+from sentinel_tpu_torch.trace import ring as _TR
+
+_SM = server_metrics()
 
 # The wire's ceiling on a reported RT (the reference's
 # ``protocol.OUTCOME_MAX_RT_MS``): a larger report would poison the window's
@@ -364,6 +379,14 @@ class DefaultTokenService(TokenService):
             range(self.param_config.max_param_rules - 1, -1, -1)
         )
         self._param_rules_src: Dict[int, ClusterParamFlowRule] = {}
+        # the rule generation: bumped on every flow or param rule reload and
+        # announced to clients as the rule epoch on a flow reload
+        self._state_gen = 0
+        # rev-7 push plane: the front doors' hubs; emits are fire-and-forget
+        # through non-blocking sinks, safe under self._lock
+        self._push_hubs: List[object] = []
+        # the hierarchy tier's coordinator (a later slice): none here
+        self.hierarchy = None
 
     @staticmethod
     def _prep_batch(cfg, slots, acq, pr):
@@ -465,8 +488,16 @@ class DefaultTokenService(TokenService):
             for lease in dead:
                 del self._leases[lease.lease_id]
             self._lease_stats["revoked"] += len(dead)
-        # seam: the push plane recalls the dead leases and announces the
-        # new rule epoch here
+            self._state_gen += 1
+            gen = self._state_gen
+        # rev-7 push, after the locks drop: recall the leases the reload
+        # killed and announce the new rule epoch clients fence on
+        for lease in dead:
+            self._emit_push(
+                "push_lease_revoke", lease.lease_id, lease.flow_id,
+                lease.tokens,
+            )
+        self._emit_push("push_rule_epoch", gen)
 
     def load_namespace_rules(
         self, namespace: str, rules: List[ClusterFlowRule]
@@ -660,6 +691,46 @@ class DefaultTokenService(TokenService):
         """Vectorized flow_id → slot (-1 when no rule); lock-free."""
         return self._lookup_from(self._lookup, flow_ids)
 
+    def namespace_index(
+        self, flow_ids
+    ) -> Tuple[np.ndarray, Tuple[str, ...]]:
+        """``(ns_idx int32[N], ns_names)`` for a batch of flow ids — the
+        front door's per-tenant attribution of rows that never reach the
+        device (queue full, brownout, degrade), shaped for
+        ``ServerMetrics.record_verdict_batch``. Lock-free (snapshot
+        reads)."""
+        slots = self._lookup_from(
+            self._lookup, np.asarray(flow_ids, np.int64)
+        )
+        return self._ns_attribution(slots)
+
+    def _ns_attribution(self, slots: np.ndarray):
+        names, slot_ns = self._ns_snapshot
+        idx = np.where(
+            slots >= 0, slot_ns[np.maximum(slots, 0)], np.int32(-1)
+        )
+        return idx, names
+
+    # -- rev-7 push plane (server→client control frames) ---------------------
+    def attach_push_hub(self, hub) -> None:
+        """Register a front door's :class:`~sentinel_tpu_torch.cluster.push.
+        PushHub`. Every service-side change that clients may be caching
+        (lease registry, breaker states, rule generation) is mirrored onto
+        every attached hub."""
+        if hub not in self._push_hubs:
+            self._push_hubs.append(hub)
+
+    def _emit_push(self, method: str, *args) -> None:
+        """Fan one emit across every attached hub. Never raises and never
+        blocks — hub sinks are the same non-blocking enqueues the reply
+        lanes use — so call sites inside ``self._lock`` are safe (the hub's
+        own lock never calls back into the service)."""
+        for hub in self._push_hubs:
+            try:
+                getattr(hub, method)(*args)
+            except Exception:
+                pass
+
     @staticmethod
     def _lookup_from(snapshot, flow_ids: np.ndarray) -> np.ndarray:
         keys, slots = snapshot
@@ -690,6 +761,9 @@ class DefaultTokenService(TokenService):
         request order. The lock covers only the device step; the CUDA
         launches are asynchronous, so a caller may dispatch the next batch
         before materializing this one."""
+        if _chaos.ARMED:  # device_stall injection: a slow or stalled step
+            _chaos.maybe_sleep("device_stall")
+        t_dispatch = time.monotonic()
         flow_ids = np.asarray(flow_ids, np.int64)
         n = flow_ids.shape[0]
         if n == 0:
@@ -725,6 +799,8 @@ class DefaultTokenService(TokenService):
             self._state, verdicts = step(
                 self._state, self._table, batch, now
             )
+        if _TR.ARMED:  # flight recorder: device step submitted
+            _TR.record(_TR.DEVICE_IN, aux=n)
 
         def _materialize():
             status_sorted = verdicts.status[:n].cpu().numpy()
@@ -732,15 +808,16 @@ class DefaultTokenService(TokenService):
             wait_sorted = verdicts.wait_ms[:n].cpu().numpy()
             if order is None:
                 status = np.array(status_sorted)
-                self._scan_if_degraded(status)
-                return (status, np.array(remaining_sorted, np.int32),
-                        np.array(wait_sorted, np.int32))
-            status = np.empty(n, status_sorted.dtype)
-            remaining = np.empty(n, np.int32)
-            wait = np.empty(n, np.int32)
-            status[order] = status_sorted
-            remaining[order] = remaining_sorted
-            wait[order] = wait_sorted
+                remaining = np.array(remaining_sorted, np.int32)
+                wait = np.array(wait_sorted, np.int32)
+            else:
+                status = np.empty(n, status_sorted.dtype)
+                remaining = np.empty(n, np.int32)
+                wait = np.empty(n, np.int32)
+                status[order] = status_sorted
+                remaining[order] = remaining_sorted
+                wait[order] = wait_sorted
+            self._record_served(status, wait, slots, t_dispatch)
             self._scan_if_degraded(status)
             return status, remaining, wait
 
@@ -783,6 +860,7 @@ class DefaultTokenService(TokenService):
     def _dispatch_fused(self, flow_ids, acq, pr, depth, cap):
         """``depth`` consecutive full frames as one chained step at one
         shared ``now``; returns a request-order materializer."""
+        t_dispatch = time.monotonic()
         lookup_snap = self._lookup
         uniform = bool(acq.min() == acq.max())
         cfg = self.config
@@ -820,6 +898,10 @@ class DefaultTokenService(TokenService):
             self._state, verdicts = step(
                 self._state, self._table, block, now
             )
+        _SM.record_fused(depth)
+        if _TR.ARMED:  # flight recorder: fused group submitted
+            _TR.record(_TR.FUSE, aux=depth)
+            _TR.record(_TR.DEVICE_IN, aux=depth * cap)
 
         def _materialize():
             status_all = verdicts.status.cpu().numpy()
@@ -839,10 +921,26 @@ class DefaultTokenService(TokenService):
                     status[dst][order_f] = status_all[f]
                     remaining[dst][order_f] = remaining_all[f]
                     wait[dst][order_f] = wait_all[f]
+            self._record_served(
+                status, wait, np.concatenate([p[0] for p in preps]),
+                t_dispatch,
+            )
             self._scan_if_degraded(status)
             return status, remaining, wait
 
         return _materialize
+
+    def _record_served(self, status, wait, slots, t_dispatch) -> None:
+        """Per-namespace verdict counters (``sentinel_server_verdicts_total``,
+        and through them the timeline and the SLO plane) for one served
+        batch; ``slots`` is request order."""
+        _SM.record_verdict_batch(
+            status, *self._ns_attribution(slots),
+            latency_ms=(time.monotonic() - t_dispatch) * 1e3,
+            wait_ms=wait,
+        )
+        if _TR.ARMED:  # flight recorder: device step materialized
+            _TR.record(_TR.DEVICE_OUT, aux=status.shape[0])
 
     def _scan_if_degraded(self, status: np.ndarray) -> None:
         """A materialized pull that answered DEGRADED saw breaker activity:
@@ -868,7 +966,7 @@ class DefaultTokenService(TokenService):
 
     # -- hot-param path -------------------------------------------------------
     def _dev(self, a: np.ndarray) -> torch.Tensor:
-        return torch.as_tensor(np.ascontiguousarray(a), device=self.device)
+        return host_to_device(a, self.device)
 
     def load_param_rules(self, rules: List[ClusterParamFlowRule]) -> None:
         """``ClusterParamFlowRuleManager`` analog: slots stay stable across
@@ -905,6 +1003,7 @@ class DefaultTokenService(TokenService):
                 items = dict(rule.item_thresholds or ())
                 self._param_rules[rule.flow_id] = (slot, rule.count, items)
             self._param_rules_src = {r.flow_id: r for r in rules}
+            self._state_gen += 1
 
     def load_namespace_param_rules(
         self, namespace: str, rules: List[ClusterParamFlowRule]
@@ -941,11 +1040,22 @@ class DefaultTokenService(TokenService):
         a mixed verdict (a conservative overcount)."""
         if not param_hashes:
             return TokenResult(TokenStatus.OK)
+        admit = self._param_step(flow_id, acquire, param_hashes)
+        if admit is None:
+            return TokenResult(TokenStatus.NO_RULE_EXISTS)
+        if bool(admit.all()):  # the verdict read: waits for the step
+            return TokenResult(TokenStatus.OK)
+        return TokenResult(TokenStatus.BLOCKED)
+
+    def _param_step(self, flow_id, acquire, param_hashes):
+        """The param step of one request, up to its verdict: returns the
+        request's ``admit`` rows on the device (unread, so nothing here
+        waits for the stream), or None when the flow has no param rule."""
         pc = self.param_config
         with self._lock:
             entry = self._param_rules.get(int(flow_id))
             if entry is None:
-                return TokenResult(TokenStatus.NO_RULE_EXISTS)
+                return None
             slot, count, items = entry
             hashes = np.asarray(list(param_hashes), dtype=np.int64)
             idx = hash_indices(hashes, pc.depth, pc.cell_width)
@@ -980,9 +1090,7 @@ class DefaultTokenService(TokenService):
                 now,
                 idx_slim=idx_slim,
             )
-        if bool(admit[:n].all()):
-            return TokenResult(TokenStatus.OK)
-        return TokenResult(TokenStatus.BLOCKED)
+        return admit[:n]
 
     # -- concurrent (semaphore) mode ----------------------------------------
     def load_concurrent_rules(self, rules) -> None:
@@ -1024,7 +1132,13 @@ class DefaultTokenService(TokenService):
         for lease in dead:
             del self._leases[lease.lease_id]
         self._lease_stats["revoked"] += len(dead)
-        # seam: the push plane recalls the expired leases here
+        # push the revocations, so a live but slow client drops its cached
+        # slice now
+        for lease in dead:
+            self._emit_push(
+                "push_lease_revoke", lease.lease_id, lease.flow_id,
+                lease.tokens,
+            )
 
     def _credit_lease_locked(self, lease: _Lease, used: int) -> None:
         """Credit a lease's unused tokens back into the exact ring bucket
@@ -1533,6 +1647,7 @@ class DefaultTokenService(TokenService):
         if not self._has_breakers:
             return {}
         edges: Dict[Tuple[int, int], int] = {}
+        flips: List[Tuple[int, int]] = []  # (flow_id, new state) per edge
         with self._lock:
             now_s = time.monotonic()
             if not force and now_s - self._breaker_scan_ts < 1.0:
@@ -1543,12 +1658,24 @@ class DefaultTokenService(TokenService):
             self._breaker_prev = st
             if prev is None:
                 prev = np.zeros_like(st)
-            for s in np.nonzero(st != prev)[0].tolist():
+            changed = np.nonzero(st != prev)[0].tolist()
+            rev = ({v: k for k, v in self._index.slot_of.items()}
+                   if changed else {})
+            for s in changed:
                 if s in self._breaker_slots:  # else a dropped rule's row
                     key = (int(prev[s]), int(st[s]))
                     edges[key] = edges.get(key, 0) + 1
-        # seam: the edges feed the transition counters, the clients' push
-        # (breaker flips) and, on a trip to OPEN, the blackbox dump here
+                    flips.append((int(rev[s]), int(st[s])))
+        # rev-7 push: every edge goes to the clients; OPEN parks their local
+        # admission for the rule's recovery timeout, CLOSED and HALF_OPEN
+        # lift it
+        for fid, to in flips:
+            retry = 0
+            if to == 1:  # OPEN
+                retry = int(self._degrade_rules_src[fid].recovery_timeout_ms)
+            self._emit_push("push_breaker_flip", fid, to, retry)
+        # seam: the edges feed the transition counters and, on a trip to
+        # OPEN, the blackbox dump here
         return edges
 
     def breaker_stats(self) -> Dict[str, object]:

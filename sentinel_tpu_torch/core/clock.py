@@ -3,14 +3,16 @@
 Host-only copy of ``sentinel_tpu/core/clock.py`` (the port imports nothing of
 the JAX package): every device step takes ``now_ms`` as an argument, and the
 host obtains it from a swappable :class:`Clock`. Tests install a
-:class:`ManualClock`. The chaos clock-skew hook of the reference is not part
-of this slice.
+:class:`ManualClock`. While chaos is armed, :func:`now_ms` adds the
+``clock_skew`` offset, as the reference does.
 """
 
 from __future__ import annotations
 
 import threading
 import time
+
+from sentinel_tpu_torch import chaos as _chaos
 
 
 class Clock:
@@ -80,4 +82,6 @@ def set_clock(clock: Clock) -> Clock:
 
 
 def now_ms() -> int:
+    if _chaos.ARMED:  # clock_skew injection (constant offset while armed)
+        return _clock.now_ms() + int(_chaos.skew_ms())
     return _clock.now_ms()

@@ -148,12 +148,24 @@ def make_batch_into(
     valid[n:] = False
 
 
+def host_to_device(a: np.ndarray, device) -> torch.Tensor:
+    """``a`` on ``device``. To a card the copy goes through a pinned staging
+    buffer and does not wait for the stream (a copy from pageable memory
+    would); PyTorch's pinned allocator keeps the buffer until the copy has
+    run, so the caller may reuse ``a`` at once."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if torch.device(device).type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 def batch_to(batch: RequestBatch, device) -> RequestBatch:
     """Move a batch's leaves (numpy or tensors) to ``device`` with the
     reference's dtypes."""
     dtypes = (torch.int32, torch.int32, torch.bool, torch.bool)
     return RequestBatch(*(
-        torch.as_tensor(leaf, device=device).to(dt)
+        (leaf.to(device) if isinstance(leaf, torch.Tensor)
+         else host_to_device(np.asarray(leaf), device)).to(dt)
         for leaf, dt in zip(batch, dtypes)
     ))
 

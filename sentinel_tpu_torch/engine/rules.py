@@ -276,6 +276,69 @@ def build_rule_table(
     return table_from_columns(cols, device=dev), index
 
 
+def encode_rule(rule: ClusterFlowRule) -> dict:
+    """The wire/blob dict shape shared by snapshots and MOVE blobs. Shaping
+    keys are emitted only when non-default, so pre-shaping payloads stay
+    byte-identical for plain rules (and old decoders keep working)."""
+    d = {
+        "flow_id": int(rule.flow_id),
+        "count": float(rule.count),
+        "mode": int(rule.mode),
+        "namespace": rule.namespace,
+    }
+    if int(rule.control_behavior) != 0:
+        d["behavior"] = int(rule.control_behavior)
+        d["warmupSec"] = int(rule.warm_up_period_sec)
+        d["coldFactor"] = int(rule.cold_factor)
+        d["maxQueueMs"] = int(rule.max_queueing_time_ms)
+    return d
+
+
+def decode_rule(d: dict) -> ClusterFlowRule:
+    """Inverse of :func:`encode_rule`; tolerant of payloads written before
+    the shaping fields existed."""
+    return ClusterFlowRule(
+        flow_id=int(d["flow_id"]),
+        count=float(d["count"]),
+        mode=ThresholdMode(int(d["mode"])),
+        namespace=str(d["namespace"]),
+        control_behavior=int(d.get("behavior", 0)),
+        warm_up_period_sec=int(d.get("warmupSec", 10)),
+        cold_factor=int(d.get("coldFactor", 3)),
+        max_queueing_time_ms=int(d.get("maxQueueMs", 500)),
+    )
+
+
+def encode_degrade_rule(rule: DegradeRule) -> dict:
+    """Wire/blob dict for a DegradeRule — shared by snapshots and MOVE
+    blobs, same emit-only-non-default discipline as :func:`encode_rule`."""
+    d = {
+        "flow_id": int(rule.flow_id),
+        "strategy": int(rule.strategy),
+        "threshold": float(rule.threshold),
+        "minRequest": int(rule.min_request_amount),
+        "statMs": int(rule.stat_interval_ms),
+        "recoveryMs": int(rule.recovery_timeout_ms),
+        "namespace": rule.namespace,
+    }
+    if int(rule.strategy) == int(DegradeStrategy.SLOW_REQUEST_RATIO):
+        d["slowRtMs"] = int(rule.slow_rt_ms)
+    return d
+
+
+def decode_degrade_rule(d: dict) -> DegradeRule:
+    return DegradeRule(
+        flow_id=int(d["flow_id"]),
+        strategy=DegradeStrategy(int(d["strategy"])),
+        threshold=float(d["threshold"]),
+        slow_rt_ms=int(d.get("slowRtMs", 1000)),
+        min_request_amount=int(d.get("minRequest", 5)),
+        stat_interval_ms=int(d.get("statMs", 1000)),
+        recovery_timeout_ms=int(d.get("recoveryMs", 5000)),
+        namespace=str(d.get("namespace", "default")),
+    )
+
+
 def drain_pending_clear(index: RuleIndex, state):
     """Zero the history of slots freed by rule reloads, in place; returns
     the same state. Idempotent; call after every ``build_rule_table``."""

@@ -53,7 +53,7 @@ def roll_(counts: torch.Tensor, starts: torch.Tensor, cur: int,
     start is stale, then record ``cur_start``; decided on the device."""
     keep = (starts[cur] == cur_start).to(counts.dtype)
     counts[:, cur].mul_(keep)
-    starts[cur] = cur_start
+    starts[cur].fill_(cur_start)  # no host-scalar copy: no stream wait
 
 
 def bucket_ok(starts: torch.Tensor, now: int,

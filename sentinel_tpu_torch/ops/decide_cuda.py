@@ -277,7 +277,7 @@ def decide_rows_plain(
     flow_counts[:, idx_cur, :].index_put_(
         (slot_l,), torch.where(wok[:, None], totals, 0), accumulate=True
     )
-    fstarts[idx_cur] = cur_start
+    fstarts[idx_cur].fill_(cur_start)  # no host-scalar copy: no stream wait
 
     return DecideRows(
         admit=admit, can_occupy=can_occupy, pace_accept=accept,

@@ -49,7 +49,9 @@ def slim_prestep(config, state, rule_slot, idx_slim, now: int) -> torch.Tensor:
     state.slim_auth[cur] = state.slim_auth[cur] & keep
 
     starts = state.starts.clone()
-    starts[cur] = cur_start
+    # fill_ takes the start as a kernel argument; an indexed assignment
+    # of a host scalar would wait for the stream
+    starts[cur].fill_(cur_start)
     use = bucket_ok(starts, now, config.interval_ms) * \
         state.slim_auth.to(torch.int32)  # [B]
 
