@@ -102,7 +102,23 @@ Builds the port's CUDA kernels from ``sentinel_tpu_torch/csrc`` (one
    PARAM_FLOW RTT per sketch; then, with the door stopped, a grouped, a
    fused (depth 4) dispatch and a param step up to its verdict read run
    under torch's sync debug mode;
-10. prints the timings, the card's name and power limit, one
+10. high availability at phase 9's widths (``phase_ha``): a primary door
+   replicating every 100 ms to two standby doors, one on the kernels and
+   its twin on the torch-ops cores; every frame type refused STANDBY before
+   promotion; phase 9's lockstep and a closed loop of pulls, reports and
+   param requests through the primary, each tick timed (dirty rows, delta
+   bytes, ``export_delta`` and the lock it holds, the standby's apply);
+   after the last tick the card standby's rows equal the primary's and
+   every leaf its twin's; after promotion the lockstep through the card
+   standby equals the twin service, one decide launch a device step and
+   one count-min launch a PARAM_FLOW frame; ``save_snapshot`` and
+   ``restore_latest`` timed at 100k flows; SALSA fed fat delta rows, card
+   standby against twin; the slim against the fat param delta bytes; and
+   the failover drill: the primary in a child process, SIGKILLed
+   mid-window, the standby's watchdog promotes it, the admissions on a
+   metered flow summed over both stay within the window plus one ship
+   interval's, and the promoted standby blocks;
+11. prints the timings, the card's name and power limit, one
    ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
 
 Any failed check raises and exits non-zero. With no CUDA device, or run from
@@ -119,6 +135,7 @@ import os
 import re
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -163,6 +180,20 @@ DOOR_SECONDS = 1.5
 DOOR_CLIENTS = 4
 DOOR_PARAM_REQUESTS = 300
 DOOR_CONC_FLOWS = (200_001, 200_002, 200_003)
+# phase 10: high availability
+HA_INTERVAL_MS = 100  # repl_interval_ms of every primary
+HA_ROUNDS = 2  # lockstep rounds through the primary, and after promotion
+HA_LOOP_SECONDS = 2.0  # the closed loop on the system clock
+HA_LOOP_PULL = 1024
+HA_SALSA_TICKS = 5
+HA_SALSA_REQUESTS = 40  # param requests a tick
+# the failover drill: the reference drill's window (five 500 ms buckets
+# hold the whole drill), ship interval and silence bound
+HA_DRILL_BUCKET_MS = 500
+HA_DRILL_QPS = 60.0  # the metered flow's rule: 300 tokens a window
+HA_DRILL_ROWS = 4  # rows of the metered flow a pull
+HA_DRILL_RATE = 100.0  # pulls a second
+HA_PROMOTE_AFTER_MS = 1000.0
 
 
 def log(msg: str) -> None:
@@ -1049,6 +1080,31 @@ def report_kernels(torch, svc, mc, reports):
     return out
 
 
+def flow_rules():
+    """Phase 9's rules: ``service_rules``' 100k flows, a breaker on every
+    10th (``torch_outcome_check.degrade_specs``) and ``ParamConfig()``'s 256
+    param rules (``torch_param_check.service_rule_specs``)."""
+    import torch_outcome_check as OC
+    import torch_param_check as PC
+
+    from sentinel_tpu_torch.cluster.token_service import ClusterParamFlowRule
+    from sentinel_tpu_torch.engine import (
+        ClusterFlowRule,
+        DegradeRule,
+        DegradeStrategy,
+        ThresholdMode,
+    )
+
+    rules = service_rules(ClusterFlowRule, ThresholdMode)
+    degrade = [DegradeRule(**{**d, "strategy": DegradeStrategy(
+        d["strategy"])}) for d in OC.degrade_specs(
+            range(F), lambda fid: f"ns{fid % NS}")]
+    specs = PC.service_rule_specs(256, np.random.default_rng(41))
+    param_rules = [ClusterParamFlowRule(s.flow_id, s.count, s.item_thresholds)
+                   for s in specs]
+    return rules, degrade, param_rules
+
+
 def door_lease_flows(n: int = 3):
     """Flows a lease may be granted on: plain (no shaping), no breaker, and
     cold in the Zipf pulls (high ids), so they keep headroom."""
@@ -1088,24 +1144,13 @@ def phase_door(torch, dev):
 
     import torch_door_check as DK
     import torch_kernel_check as DC
-    import torch_outcome_check as OC
-    import torch_param_check as PC
 
     from sentinel_tpu_torch.cluster import protocol as P
     from sentinel_tpu_torch.cluster.concurrent import ConcurrentFlowRule
     from sentinel_tpu_torch.cluster.server_native import NativeTokenServer
-    from sentinel_tpu_torch.cluster.token_service import (
-        ClusterParamFlowRule,
-        DefaultTokenService,
-    )
+    from sentinel_tpu_torch.cluster.token_service import DefaultTokenService
     from sentinel_tpu_torch.core import clock
-    from sentinel_tpu_torch.engine import (
-        ClusterFlowRule,
-        DegradeRule,
-        DegradeStrategy,
-        EngineConfig,
-        ThresholdMode,
-    )
+    from sentinel_tpu_torch.engine import EngineConfig
     from sentinel_tpu_torch.engine.param import ParamConfig
     from sentinel_tpu_torch.metrics.server import server_metrics
     from sentinel_tpu_torch.native import build as native_build
@@ -1118,14 +1163,8 @@ def phase_door(torch, dev):
     log(f"door: native library {os.path.basename(native_build.target())} "
         f"ready in {time.perf_counter() - t0:.1f} s")
     cfg = EngineConfig(max_flows=F, max_namespaces=NS, batch_size=SIZES[-1])
-    rules = service_rules(ClusterFlowRule, ThresholdMode)
-    degrade = [DegradeRule(**{**d, "strategy": DegradeStrategy(
-        d["strategy"])}) for d in OC.degrade_specs(
-            range(F), lambda fid: f"ns{fid % NS}")]
-    specs = PC.service_rule_specs(256, np.random.default_rng(41))
-    param_rules = [ClusterParamFlowRule(s.flow_id, s.count, s.item_thresholds)
-                   for s in specs]
-    param_flows = [s.flow_id for s in specs]
+    rules, degrade, param_rules = flow_rules()
+    param_flows = [r.flow_id for r in param_rules]
 
     def service(sketch="cms", twin=False, flows=True):
         c = cfg._replace(decide_impl="xla") if twin else cfg
@@ -1342,6 +1381,633 @@ def phase_door(torch, dev):
     return out
 
 
+def ha_service(dev, rules=None, twin=False, sketch="cms", slim_width=None,
+               bucket_ms=None, conc=False):
+    """A service of phase 10 at phase 9's widths: on the kernels, or with
+    ``twin`` on the torch-ops cores; ``rules`` is ``flow_rules()``' triple
+    (an empty flow list loads the param rules only), or None for a cold
+    standby."""
+    from sentinel_tpu_torch.cluster.concurrent import ConcurrentFlowRule
+    from sentinel_tpu_torch.cluster.token_service import DefaultTokenService
+    from sentinel_tpu_torch.engine import EngineConfig
+    from sentinel_tpu_torch.engine.param import ParamConfig
+
+    # one namespace row more than the rules use: clients join "default",
+    # which the snapshot's connected counts carry and a restore must seat
+    cfg = EngineConfig(max_flows=F, max_namespaces=NS + 1,
+                       batch_size=SIZES[-1],
+                       decide_impl="xla" if twin else "auto")
+    if bucket_ms is not None:
+        cfg = cfg._replace(bucket_ms=bucket_ms)
+    pc = ParamConfig(sketch=sketch, impl="jax" if twin else "auto")
+    if slim_width is not None:
+        pc = pc._replace(slim_width=slim_width)
+    s = DefaultTokenService(cfg, param_config=pc, device=dev)
+    if rules is not None:
+        flow, degrade, params = rules
+        if flow:
+            s.load_degrade_rules(degrade)
+            s.load_rules(flow, ns_max_qps=1e9)
+        s.load_param_rules(params)
+    if conc:
+        s.load_concurrent_rules([ConcurrentFlowRule(
+            f, 2, resource_timeout_ms=600_000) for f in DOOR_CONC_FLOWS])
+    return s
+
+
+def ha_drill_primary(conn, drill_flow: int, device: str, flows: int,
+                     snap_dir: str) -> None:
+    """The failover drill's primary, in a child process that the drill ends
+    with SIGKILL (no final ship, no shutdown hook): phase 9's flows with
+    ``drill_flow`` metered at ``HA_DRILL_QPS`` over ``HA_DRILL_BUCKET_MS``
+    buckets, on ``device``. ``flows`` is the parent's ``F`` (a rehearsal on
+    the CPU shrinks it). Builds and warms up its service, saves a snapshot
+    into ``snap_dir`` and says "ready", takes the standby's port, starts
+    its door replicating to it, sends its own port, and serves until
+    killed."""
+    import dataclasses
+
+    from sentinel_tpu_torch.cluster.server_native import NativeTokenServer
+    from sentinel_tpu_torch.ha.snapshot import save_snapshot
+
+    global F
+    F = flows
+    flow, degrade, params = flow_rules()
+    flow = [dataclasses.replace(r, count=HA_DRILL_QPS)
+            if r.flow_id == drill_flow else r for r in flow]
+    svc = ha_service(device, (flow, degrade, params),
+                     bucket_ms=HA_DRILL_BUCKET_MS)
+    svc.warmup()
+    save_snapshot(svc, snap_dir)
+    conn.send("ready")
+    standby_port = conn.recv()
+    server = NativeTokenServer(
+        svc, port=0, idle_ttl_s=None,
+        replicate_to=[("127.0.0.1", standby_port)],
+        repl_interval_ms=HA_INTERVAL_MS)
+    server.start()
+    conn.send(server.port)
+    while True:
+        time.sleep(3600)
+
+
+class LockHeld:
+    """Stands in for a service's lock and times the holds that one thread
+    (``watch``) takes: how long the replication sender's ``export_delta``
+    keeps the device lane out."""
+
+    def __init__(self, lock):
+        self.lock = lock
+        self.watch = None
+        self.ms = 0.0
+        self._t = None
+
+    def __enter__(self):
+        self.lock.acquire()
+        # _t is read and written only while the lock is held
+        self._t = (time.perf_counter()
+                   if threading.get_ident() == self.watch else None)
+        return self
+
+    def __exit__(self, *exc):
+        if self._t is not None:
+            self.ms += (time.perf_counter() - self._t) * 1e3
+        self.lock.release()
+
+
+def watch_replication(R, primary_svc, standby_svc):
+    """Per-tick records of a running sender and one standby: the primary's
+    ``export_delta`` (host ms, the service lock's held ms, dirty rows), the
+    blob bytes (``R.encode_delta_blob``), the standby's
+    ``apply_replication_delta`` ms and its snapshot ``import_state`` ms.
+    Returns ``(ticks, applies, imports, undo)``."""
+    ticks, applies, imports = [], [], []
+    held = LockHeld(primary_svc._lock)
+    export, apply = primary_svc.export_delta, standby_svc.apply_replication_delta
+    restore = standby_svc.import_state
+    encode = R.encode_delta_blob
+
+    def timed_export():
+        held.watch, held.ms = threading.get_ident(), 0.0
+        t0 = time.perf_counter()
+        d = export()
+        ms = (time.perf_counter() - t0) * 1e3
+        rows = sum(len(d.get(k, ())) for k in (
+            "flow_ids", "ns_names", "outcome_fids", "breaker_fids",
+            "param_fids"))
+        ticks.append({"export_ms": ms, "lock_ms": held.ms, "rows": rows})
+        return d
+
+    def timed_encode(d):
+        blob = encode(d)
+        if ticks and "bytes" not in ticks[-1]:
+            ticks[-1]["bytes"] = len(blob)
+        return blob
+
+    def timed_apply(d):
+        t0 = time.perf_counter()
+        apply(d)
+        applies.append((time.perf_counter() - t0) * 1e3)
+
+    def timed_import(state):
+        t0 = time.perf_counter()
+        restore(state)
+        imports.append((time.perf_counter() - t0) * 1e3)
+
+    primary_svc._lock = held
+    primary_svc.export_delta = timed_export
+    standby_svc.apply_replication_delta = timed_apply
+    standby_svc.import_state = timed_import
+    R.encode_delta_blob = timed_encode
+
+    def undo():
+        primary_svc._lock = held.lock
+        del primary_svc.export_delta
+        del standby_svc.apply_replication_delta
+        del standby_svc.import_state
+        R.encode_delta_blob = encode
+
+    return ticks, applies, imports, undo
+
+
+def wait_for(predicate, what: str, timeout_s: float) -> float:
+    """Poll ``predicate`` up to ``timeout_s``; returns the seconds waited,
+    raises naming ``what`` at the deadline."""
+    t0 = time.monotonic()
+    while not predicate():
+        if time.monotonic() - t0 > timeout_s:
+            raise AssertionError(f"ha: {what} within {timeout_s} s")
+        time.sleep(0.005)
+    return time.monotonic() - t0
+
+
+def quantiles(xs) -> dict:
+    a = np.asarray(xs, np.float64)
+    if a.size == 0:
+        return {"n": 0}
+    return {"n": int(a.size), "p50": float(np.percentile(a, 50)),
+            "p99": float(np.percentile(a, 99)), "max": float(a.max())}
+
+
+def phase_ha(torch, dev):
+    """High availability at phase 9's widths (100k flows, 10,000 breakers,
+    256 param rules), through the port's doors on the card.
+
+    1. A primary door with ``replicate_to=`` two standby doors, one on the
+       kernels (the card standby) and its twin on the torch-ops cores, with
+       ``repl_interval_ms`` = ``HA_INTERVAL_MS``: after the snapshot
+       bootstrap each standby refuses every frame type STANDBY; the primary
+       takes phase 9's lockstep on a manual clock and a closed loop of
+       Zipf pulls, reports and param requests on the system clock, while
+       every tick is timed. After the last tick the card standby's flow,
+       namespace, outcome, shaping and breaker rows and its slim param rows
+       equal the primary's, and every leaf equals the twin's. Both are
+       promoted; the lockstep through the card standby then equals the twin
+       service's answers, with one decide launch a device step and one
+       count-min launch a PARAM_FLOW frame on delta-borne state.
+    2. ``save_snapshot`` of the stopped primary and ``restore_latest`` into
+       a cold service, timed; the restored rows equal the primary's.
+    3. SALSA with fat rows (``slim_width=0``), param rules only: a primary's
+       delta blobs feed a card standby and its torch-ops twin, in process;
+       after each apply both equal the primary's rows and each other; then
+       their verdicts are equal, one SALSA launch a request.
+    4. The failover drill: a primary in a child process, metering one flow
+       at ``HA_DRILL_QPS`` over a 10 s window, replicates to a standby door
+       with ``promote_after_ms``; a client fills half the window, keeps
+       admitting until two more deltas land, SIGKILLs the primary and turns
+       to the standby. Its watchdog promotes it; the admissions summed over
+       both servers stay within the window plus one ship interval's
+       admissions and one pull, and the promoted standby blocks.
+    """
+    import shutil
+
+    import torch_door_check as DK
+    import torch_kernel_check as DC
+    import torch_outcome_check as OC
+    import torch_param_check as PC
+    import torch_repl_check as RC
+
+    from sentinel_tpu_torch import interop
+    from sentinel_tpu_torch.cluster import protocol as P
+    from sentinel_tpu_torch.cluster.server_native import NativeTokenServer
+    from sentinel_tpu_torch.core import clock
+    from sentinel_tpu_torch.ha import replication as R
+    from sentinel_tpu_torch.ha import snapshot as S
+    from sentinel_tpu_torch.ops import cms_cuda, salsa_cuda
+    from sentinel_tpu_torch.ops import decide_cuda as K
+
+    t_phase = time.perf_counter()
+    out = {}
+    rules = flow_rules()
+    param_flows = [r.flow_id for r in rules[2]]
+    drill_flow = door_lease_flows(1)[0]
+    snap_root = os.path.join(HERE, "sentinel_tpu_torch", "build",
+                             "ha_snapshots")
+    shutil.rmtree(snap_root, ignore_errors=True)
+    # the drill's primary builds and warms up beside parts 1-3
+    ctx = multiprocessing.get_context("spawn")
+    pipe, child_end = ctx.Pipe()
+    child = ctx.Process(target=ha_drill_primary,
+                        args=(child_end, drill_flow, str(dev), F,
+                              os.path.join(snap_root, "drill")),
+                        daemon=True)
+    child.start()
+    servers = []
+    try:
+        # --- 1. replication through the doors ------------------------------
+        zipf = DC.ZipfIds(F, alpha=1.1)
+        flow_ids = np.arange(F, dtype=np.int64)
+        mc = clock.ManualClock(int(time.time() * 1000) - 60_000)
+        prev = clock.set_clock(mc)
+        card_svc = ha_service(dev)
+        twin_svc = ha_service(dev, twin=True)
+        card = NativeTokenServer(card_svc, port=0, idle_ttl_s=None,
+                                 standby_of="primary")
+        twin = NativeTokenServer(twin_svc, port=0, idle_ttl_s=None,
+                                 standby_of="primary")
+        servers += [card, twin]
+        card.start()
+        twin.start()
+        mc.advance(5)  # its own epoch: the primary's HELLO asks a snapshot
+        primary_svc = ha_service(dev, rules, conc=True)
+        primary = NativeTokenServer(
+            primary_svc, port=0, idle_ttl_s=None,
+            replicate_to=[("127.0.0.1", card.port), ("127.0.0.1", twin.port)],
+            repl_interval_ms=HA_INTERVAL_MS)
+        servers.append(primary)
+        ticks, applies, imports, undo = watch_replication(R, primary_svc,
+                                                          card_svc)
+        try:
+            primary.start()
+            boot_s = wait_for(
+                lambda: all(s.applier.status()["snapshotsApplied"]
+                            for s in (card, twin)),
+                "the standbys' snapshot bootstrap", 120.0)
+            for sb, svc in ((card, card_svc), (twin, twin_svc)):
+                conn = DK.RawConn(P, sb.port)
+                try:
+                    RC.standby_refusals(P, conn, svc, zipf(
+                        np.random.default_rng(51), 64), param_flows[0],
+                        door_lease_flows()[0])
+                finally:
+                    conn.close()
+            log(f"ha: both standbys bootstrapped from the primary's snapshot "
+                f"in {boot_s:.1f} s (the card standby's import_state ms: "
+                f"{imports}); each answers BATCH_FLOW, FLOW, "
+                f"PARAM_FLOW, CONCURRENT, lease and hierarchy frames "
+                f"STANDBY, PING still, and drops OUTCOME_REPORT")
+            steps = DK.lockstep_plan(
+                np.random.default_rng(52), zipf, flow_ids, DOOR_PULLS,
+                param_flows, door_lease_flows(), DOOR_CONC_FLOWS, HA_ROUNDS,
+                P.MAX_BATCH_PER_FRAME, OUTCOME_ADVANCES_MS)
+            conn = DK.RawConn(P, primary.port)
+            try:
+                conn.ping(1)
+                DK.run_lockstep(P, conn, steps, mc.advance)
+                clock.set_clock(prev)
+                # the closed loop: one client, one request in flight
+                rng = np.random.default_rng(53)
+                loop = {"pulls": 0, "reports": 0, "params": 0}
+                xid = 10_000
+                t_end = time.monotonic() + HA_LOOP_SECONDS
+                while time.monotonic() < t_end:
+                    ids = flow_ids[zipf(rng, HA_LOOP_PULL)]
+                    xid += 1
+                    conn.send(P.encode_batch_request(xid, ids))
+                    st = P.decode_batch_response(conn.recv())[1]
+                    fl, rt, exc = OC.report_rows(rng, ids[st == OC.OK], 256)
+                    conn.send(P.encode_outcome_report(xid + 1, fl, rt, exc))
+                    conn.ping(xid + 2)  # barrier: the report was ingested
+                    fid = int(param_flows[int(rng.integers(len(
+                        param_flows)))])
+                    conn.send(P.encode_request(P.FlowRequest(
+                        xid + 3, fid, 1, False, P.MsgType.PARAM_FLOW,
+                        [int(h) for h in rng.integers(0, 1 << 40, 3)])))
+                    conn.recv()
+                    xid += 3
+                    for k in loop:
+                        loop[k] += 1
+            finally:
+                conn.close()
+            # two more documents on each: one whole export after the last
+            # frame
+            base = [s.applier.status()["deltasApplied"]
+                    for s in (card, twin)]
+            wait_for(lambda: all(
+                s.applier.status()["deltasApplied"] >= b + 2
+                for s, b in zip((card, twin), base)),
+                "two deltas after the traffic", 30.0)
+            primary.stop()
+        finally:
+            undo()
+            clock.set_clock(prev)
+        bad = (RC.flow_rows_diff(primary_svc, card_svc)
+               + RC.param_rows_diff(primary_svc, card_svc, "slim"))
+        if bad:
+            raise AssertionError(f"ha: the card standby differs from the "
+                                 f"primary in {bad[:8]}")
+        if not bool(card_svc._param_state.slim_auth.all()):
+            raise AssertionError("ha: delta slim rows left a bucket "
+                                 "without authority")
+        if card_svc._index.slot_of != twin_svc._index.slot_of:
+            raise AssertionError("ha: the standbys' slots differ")
+        a, b = (interop.state_to_numpy(s._state) for s in (card_svc, twin_svc))
+        pa, pb = (interop.param_state_to_numpy(s._param_state)
+                  for s in (card_svc, twin_svc))
+        bad = [k for k in a if not np.array_equal(a[k], b[k])] + [
+            f"param.{k}" for k in pa if not np.array_equal(pa[k], pb[k])]
+        if bad:
+            raise AssertionError(f"ha: the card standby differs from its "
+                                 f"twin in {bad}")
+        ticks = [t for t in ticks if "bytes" in t]
+        out["replication"] = dict(
+            bootstrap_s=boot_s, import_ms=imports, closed_loop=loop,
+            ticks=len(ticks),
+            export_ms=quantiles([t["export_ms"] for t in ticks]),
+            lock_held_ms=quantiles([t["lock_ms"] for t in ticks]),
+            dirty_rows=quantiles([t["rows"] for t in ticks]),
+            delta_bytes=quantiles([t["bytes"] for t in ticks]),
+            apply_ms=quantiles(applies), per_tick=ticks,
+            per_apply_ms=applies)
+        r = out["replication"]
+        log(f"ha ticks ({len(ticks)} at {HA_INTERVAL_MS} ms, F={F}): "
+            f"dirty rows {r['dirty_rows']}, delta blob bytes "
+            f"{r['delta_bytes']}, export_delta ms {r['export_ms']}, lock "
+            f"held ms {r['lock_held_ms']}, apply_replication_delta ms "
+            f"{r['apply_ms']}")
+        log("ha: after the last tick the card standby's flow, namespace, "
+            "outcome, shaping and breaker rows and slim param rows equal the "
+            "primary's, and every leaf equals its twin's")
+
+        # promotion: the card standby against the twin service, in lockstep
+        mc2 = clock.ManualClock(int(time.time() * 1000))
+        clock.set_clock(mc2)
+        try:
+            for sb in (card, twin):
+                if not (sb.is_standby and sb.promote("phase 10")
+                        and not sb.is_standby):
+                    raise AssertionError("ha: promotion failed")
+            steps = DK.lockstep_plan(
+                np.random.default_rng(54), zipf, flow_ids, DOOR_PULLS,
+                param_flows, door_lease_flows(), (), HA_ROUNDS,
+                P.MAX_BATCH_PER_FRAME, OUTCOME_ADVANCES_MS)
+            conn = DK.RawConn(P, card.port)
+            try:
+                conn.ping(1)
+                K.LAUNCHES.update(dict.fromkeys(K.LAUNCHES, 0))
+                cms_cuda.LAUNCHES.update(dict.fromkeys(cms_cuda.LAUNCHES, 0))
+                _replies, counts = DK.run_lockstep(P, conn, steps,
+                                                   mc2.advance, twin=twin_svc)
+                launches = K.LAUNCHES["decide_rows"]
+                param_launches = cms_cuda.LAUNCHES["cms_decide_update"]
+            finally:
+                conn.close()
+        finally:
+            clock.set_clock(prev)
+        if launches != counts["device_steps"] or not launches:
+            raise AssertionError(f"ha: {launches} decide launches for "
+                                 f"{counts['device_steps']} device steps")
+        if param_launches != counts["param_frames"] or not param_launches:
+            raise AssertionError(f"ha: {param_launches} count-min launches "
+                                 f"for {counts['param_frames']} frames")
+        out["promoted"] = dict(steps=len(steps),
+                               decide_launches=launches,
+                               param_launches=param_launches)
+        log(f"ha: promoted; {len(steps)} lockstep frames through the card "
+            f"standby equal the twin service's answers; {launches} decide "
+            f"launches = device steps, {param_launches} count-min launches "
+            f"= PARAM_FLOW frames")
+        for sb in (card, twin):
+            sb.stop()
+
+        # --- 2. the snapshot file -------------------------------------------
+        snap_dir = os.path.join(snap_root, "file")
+        t0 = time.perf_counter()
+        path = S.save_snapshot(primary_svc, snap_dir)
+        save_ms = (time.perf_counter() - t0) * 1e3
+        cold = ha_service(dev)
+        t0 = time.perf_counter()
+        if not S.restore_latest(cold, snap_dir):
+            raise AssertionError("ha: restore_latest found nothing")
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        out["snapshot_file"] = dict(save_ms=save_ms,
+                                    bytes=os.path.getsize(path),
+                                    restore_ms=restore_ms)
+        bad = (RC.flow_rows_diff(primary_svc, cold)
+               + RC.param_rows_diff(primary_svc, cold, "counts")
+               + RC.param_rows_diff(primary_svc, cold, "slim"))
+        if bad:
+            raise AssertionError(f"ha: the restored file differs in {bad[:8]}")
+        del cold
+        log(f"ha snapshot file at F={F}: save_snapshot "
+            f"{save_ms:.1f} ms, {out['snapshot_file']['bytes']} B; "
+            f"restore_latest {restore_ms:.1f} ms; the restored rows equal "
+            f"the primary's")
+
+        # --- 3. SALSA with fat rows, in process -----------------------------
+        only_params = ([], [], rules[2])
+        sp = ha_service(dev, only_params, sketch="salsa", slim_width=0)
+        sk = ha_service(dev, sketch="salsa", slim_width=0)
+        st = ha_service(dev, sketch="salsa", slim_width=0, twin=True)
+        mc3 = clock.ManualClock(int(time.time() * 1000))
+        clock.set_clock(mc3)
+        try:
+            sp.replication_enable()
+            blob = R.encode_snapshot_blob(sp.export_state())
+            for s in (sk, st):
+                s.import_state(R.decode_snapshot_blob(blob))
+            specs = PC.service_rule_specs(256, np.random.default_rng(41))
+            rng = np.random.default_rng(55)
+            stream = PC.service_stream(
+                specs, rng, (HA_SALSA_TICKS + 1) * HA_SALSA_REQUESTS)
+            fat_bytes = []
+            for tick in range(HA_SALSA_TICKS):
+                for fid, acq, hs in stream[tick * HA_SALSA_REQUESTS:
+                                           (tick + 1) * HA_SALSA_REQUESTS]:
+                    sp.request_params_token(fid, acq, hs)
+                    mc3.advance(int(rng.integers(1, 40)))
+                blob = R.encode_delta_blob(sp.export_delta())
+                fat_bytes.append(len(blob))
+                for s in (sk, st):
+                    s.apply_replication_delta(R.decode_delta_blob(blob))
+                pa, pb = (interop.param_state_to_numpy(s._param_state)
+                          for s in (sk, st))
+                bad = RC.param_rows_diff(sp, sk, "counts") + [
+                    k for k in pa if not np.array_equal(pa[k], pb[k])]
+                if bad:
+                    raise AssertionError(f"ha salsa tick {tick}: {bad[:8]}")
+            salsa_cuda.LAUNCHES.update(dict.fromkeys(salsa_cuda.LAUNCHES, 0))
+            last = stream[HA_SALSA_TICKS * HA_SALSA_REQUESTS:]
+            for fid, acq, hs in last:
+                a = sk.request_params_token(fid, acq, hs).status
+                b = st.request_params_token(fid, acq, hs).status
+                if a != b:
+                    raise AssertionError("ha salsa: the card standby's "
+                                         "verdict differs from its twin's")
+                mc3.advance(int(rng.integers(1, 40)))
+            salsa_launches = salsa_cuda.LAUNCHES["salsa_decide_update"]
+        finally:
+            clock.set_clock(prev)
+        if salsa_launches != len(last):
+            raise AssertionError(f"ha salsa: {salsa_launches} launches for "
+                                 f"{len(last)} requests")
+        # the reference drill's gate: the slim twin's delta >= 4x under the
+        # fat rows' for the same traffic
+        pbytes = RC.param_delta_bytes(dev)
+        if pbytes["ratio"] < 4.0:
+            raise AssertionError(f"ha: param delta bytes {pbytes}")
+        out["salsa_fat"] = dict(ticks=HA_SALSA_TICKS,
+                                delta_bytes=quantiles(fat_bytes),
+                                launches=salsa_launches)
+        out["param_delta_bytes"] = pbytes
+        log(f"ha salsa (fat rows): {HA_SALSA_TICKS} ticks of "
+            f"{HA_SALSA_REQUESTS} requests, the card standby equal to the "
+            f"primary's rows and to its twin after every apply; "
+            f"{salsa_launches} SALSA launches for as many requests with "
+            f"equal verdicts. Param delta bytes (the reference drill's "
+            f"measure, 2 x 3000 values): slim {pbytes['slim']}, fat "
+            f"{pbytes['fat']}, ratio {pbytes['ratio']}")
+
+        # --- 4. the failover drill -------------------------------------------
+        out["drill"] = ha_drill(dev, pipe, child, drill_flow,
+                                os.path.join(snap_root, "drill"))
+    finally:
+        for s in servers:
+            s.stop()
+        if child.is_alive():
+            child.kill()
+        child.join(10)
+        shutil.rmtree(snap_root, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"ha phase: {out['phase_s']:.1f} s")
+    return out
+
+
+def ha_drill(dev, pipe, child, drill_flow: int, snap_dir: str) -> dict:
+    """Part 4 of ``phase_ha``: SIGKILL the replicating primary mid-window
+    and hold the promoted standby to the reference drill's gate
+    (``benchmarks/ha_drill.py::run_replication_drill``).
+
+    The standby door bootstraps from the primary's snapshot file
+    (``snapshot_dir``: ``restore_latest`` at ``start()``, before its
+    watchdog runs), so the primary's HELLO finds one epoch and deltas flow
+    at once: a 100k-flow import over the wire outlasts both the sender's
+    2 s ack timeout and a 1 s watchdog (ROADMAP §C)."""
+    import torch_door_check as DK
+
+    from sentinel_tpu_torch.cluster import protocol as P
+    from sentinel_tpu_torch.cluster.server_native import NativeTokenServer
+
+    if not pipe.poll(120):
+        raise AssertionError("ha drill: the child primary never got ready")
+    if pipe.recv() != "ready":
+        raise AssertionError("ha drill: the child primary failed")
+    window_tokens = int(HA_DRILL_QPS * HA_DRILL_BUCKET_MS * 10 / 1000)
+    svc = ha_service(dev, bucket_ms=HA_DRILL_BUCKET_MS)
+    standby = NativeTokenServer(svc, port=0, idle_ttl_s=None,
+                                standby_of="primary",
+                                promote_after_ms=HA_PROMOTE_AFTER_MS,
+                                snapshot_dir=snap_dir,
+                                snapshot_period_s=3600.0)
+    t0 = time.perf_counter()
+    standby.start()  # restores the primary's artifact into the cold service
+    boot_ms = (time.perf_counter() - t0) * 1e3
+    try:
+        if not svc.current_rules():
+            raise AssertionError("ha drill: the standby restored nothing")
+        pipe.send(standby.port)
+        if not pipe.poll(60):
+            raise AssertionError("ha drill: the child's door never started")
+        primary_port = pipe.recv()
+        wait_for(lambda: standby.applier.status()["deltasApplied"] >= 2,
+                 "deltas after the file bootstrap", 30.0)
+        if standby.applier.status()["snapshotsApplied"]:
+            raise AssertionError("ha drill: the HELLO asked a snapshot")
+        if not standby.is_standby:
+            raise AssertionError("ha drill: the standby promoted itself "
+                                 "while its primary lived")
+        ids = np.full(HA_DRILL_ROWS, drill_flow, np.int64)
+        to_primary = DK.RawConn(P, primary_port, timeout_s=5.0)
+        to_standby = DK.RawConn(P, standby.port, timeout_s=5.0)
+        to_primary.ping(1)
+        to_standby.ping(1)
+        xid = [10]
+
+        def pull(conn):
+            xid[0] += 1
+            conn.send(P.encode_batch_request(xid[0], ids))
+            return P.decode_batch_response(conn.recv())[1]
+
+        period = 1.0 / HA_DRILL_RATE
+        fill = post = blocks = 0
+        converge_ms = None
+        try:
+            # fill: paced pulls to the middle of the window
+            t_fill = next_t = time.monotonic()
+            while fill < window_tokens // 2:
+                next_t += period
+                time.sleep(max(0.0, next_t - time.monotonic()))
+                fill += int((pull(to_primary) == 0).sum())
+                if time.monotonic() - t_fill > 5.0:
+                    raise AssertionError("ha drill: the fill stalled")
+            fill_rate = fill / max(time.monotonic() - t_fill, 1e-6)
+            # mid-load: keep admitting until two more deltas have landed,
+            # the second captured after every fill admission
+            base = standby.applier.status()["deltasApplied"]
+            t_grace = time.monotonic()
+            while standby.applier.status()["deltasApplied"] < base + 2:
+                next_t += period
+                time.sleep(max(0.0, next_t - time.monotonic()))
+                fill += int((pull(to_primary) == 0).sum())
+                if time.monotonic() - t_grace > 5.0:
+                    raise AssertionError("ha drill: no deltas under load")
+            child.kill()  # SIGKILL: no final ship, no shutdown hook
+            t_kill = time.monotonic()
+            child.join(10)
+            standby_answers = 0
+            while time.monotonic() - t_kill < (HA_PROMOTE_AFTER_MS / 1000.0
+                                               + 1.0):
+                next_t += period
+                time.sleep(max(0.0, next_t - time.monotonic()))
+                st = pull(to_standby)
+                if (st == 9).all():  # STANDBY: not promoted yet
+                    standby_answers += 1
+                    continue
+                if converge_ms is None:
+                    converge_ms = (time.monotonic() - t_kill) * 1e3
+                post += int((st == 0).sum())
+                blocks += int((st == 1).sum())
+        finally:
+            to_primary.close()
+            to_standby.close()
+    finally:
+        standby.stop()
+    total = fill + post
+    budget = int(fill_rate * HA_INTERVAL_MS / 1000.0) + HA_DRILL_ROWS
+    over = max(0, total - window_tokens)
+    res = dict(window_tokens=window_tokens, fill_rate_tokens_per_s=fill_rate,
+               admitted_before_kill=fill, admitted_after_kill=post,
+               over_admission=over, budget=budget,
+               kill_to_first_verdict_ms=converge_ms,
+               standby_answers_before_promotion=standby_answers,
+               standby_blocks=blocks, bootstrap_ms=boot_ms,
+               promote_after_ms=HA_PROMOTE_AFTER_MS)
+    log(f"ha drill: {fill} admitted before the SIGKILL, {post} after, over "
+        f"a {window_tokens}-token window: over-admission {over} against a "
+        f"budget of {budget} (one {HA_INTERVAL_MS} ms ship interval at "
+        f"{fill_rate:.0f} tokens/s, plus one pull); SIGKILL to the first "
+        f"verdict the standby served {converge_ms} ms (promote_after_ms "
+        f"{HA_PROMOTE_AFTER_MS:.0f}); {blocks} rows blocked by the promoted "
+        f"standby; its start() with restore_latest took {boot_ms:.0f} ms")
+    if converge_ms is None:
+        raise AssertionError("ha drill: the standby never served")
+    if over > budget:
+        raise AssertionError(f"ha drill: over-admitted {over} > {budget}")
+    if not blocks:
+        raise AssertionError("ha drill: the promoted standby never blocked")
+    return res
+
+
 def phase_prefix(torch, dev, cfg, table, state):
     """The segment-prefix plan and apply kernels vs their plain versions on
     every key shape, their times, then an ungrouped decide step with
@@ -1511,6 +2177,7 @@ def main() -> int:
         torch, dev, cfg, table, state)
     outcome, profiled_reports = phase_outcome(torch, dev)
     door = phase_door(torch, dev)
+    ha = phase_ha(torch, dev)
     service[SIZES[-1]].update(profiled_pulls())
     for sketch, kernels_a_call in profiled_params().items():
         param_service[sketch]["profiled"] = kernels_a_call
@@ -1534,6 +2201,7 @@ def main() -> int:
         "by_n": {str(n): timing[n] for n in SIZES},
         "launches_outcome_phase": outcome["launches"],
         "launches_door_phase": door["lockstep"]["decide_launches"],
+        "launches_ha_phase": ha["promoted"]["decide_launches"],
     }]
     for sketch, name, line in (("cms", "cms_decide_update", 49),
                                ("salsa", "salsa_decide_update", 37)):
@@ -1554,6 +2222,9 @@ def main() -> int:
             "launches_door_phase": (door["lockstep"]["param_launches"]
                                     if sketch == "cms" else
                                     DOOR_PARAM_REQUESTS),
+            "launches_ha_phase": (ha["promoted"]["param_launches"]
+                                  if sketch == "cms" else
+                                  ha["salsa_fat"]["launches"]),
             "parity_steps": param_parity[sketch][1],
             "by_n": {str(n): v for n, v in param_timing[sketch].items()},
         })
@@ -1579,6 +2250,7 @@ def main() -> int:
                     "param_service": param_service,
                     "outcome": outcome,
                     "door": door,
+                    "ha": ha,
                     "gpu": ident}))
     log(ident)
     log(json.dumps({"kernels": kernels}))

@@ -31,13 +31,22 @@ Fusion depth adapts to load by construction: an idle queue yields
 single-frame dispatches (no added latency), a backed-up queue yields
 deep fused steps (max amortization).
 
+High availability, as in the reference door: ``snapshot_dir`` (or
+``SENTINEL_SNAPSHOT_DIR``) restores the newest artifact into a cold service
+at start and saves one every ``snapshot_period_s`` and at stop;
+``replicate_to`` ships the service's dirty rows to warm standbys every
+``repl_interval_ms``; ``standby_of`` makes this server a standby, which
+applies the rev-3 REPL frames it receives and answers every data-plane and
+control verdict ``STANDBY`` (PING still answers, OUTCOME_REPORT is
+dropped) until :meth:`NativeTokenServer.promote`, or until its primary has
+been silent for ``promote_after_ms``.
+
 The service is probed for no hook: it must have every method the door
-calls (:class:`DefaultTokenService` does). Features of slices not yet
-ported are refused at construction with ``NotImplementedError``:
-``snapshot_dir`` (or ``SENTINEL_SNAPSHOT_DIR``), ``standby_of`` and
-``replicate_to`` (the snapshot file and replication) and ``metrics_port``
-(the Prometheus exporter). A rev-4 MOVE frame closes its connection with a
-logged warning, counted as the ``refused`` rebalance event.
+calls (:class:`DefaultTokenService` does). A feature of a slice not yet
+ported is refused at construction with ``NotImplementedError``:
+``metrics_port`` (the Prometheus exporter). A rev-4 MOVE frame closes its
+connection with a logged warning, counted as the ``refused`` rebalance
+event.
 """
 
 from __future__ import annotations
@@ -64,6 +73,7 @@ from sentinel_tpu_torch.trace import ring as _TR
 
 _SM = server_metrics()
 _OVERLOAD = int(TokenStatus.OVERLOAD)
+_STANDBY = int(TokenStatus.STANDBY)
 
 
 def native_available() -> bool:
@@ -98,21 +108,18 @@ class NativeTokenServer:
         profile_dir: Optional[str] = None,
         metrics_port: Optional[int] = None,
         snapshot_dir: Optional[str] = None,
+        snapshot_period_s: Optional[float] = None,
         shed_age_ms: Optional[float] = 1000.0,
         drain_timeout_s: float = 10.0,
         overload: Optional[AdmissionController] = None,
         standby_of: Optional[str] = None,
+        promote_after_ms: Optional[float] = None,
         replicate_to: Optional[Sequence] = None,
+        repl_interval_ms: Optional[float] = None,
         shm_dir: Optional[str] = None,
         shm_spin_us: Optional[int] = None,
         push: bool = True,
     ):
-        if snapshot_dir or os.environ.get("SENTINEL_SNAPSHOT_DIR"):
-            _refuse("snapshot_dir (the HA snapshot file)", "item 4")
-        if standby_of is not None:
-            _refuse("standby_of (warm-standby replication)", "item 4")
-        if replicate_to:
-            _refuse("replicate_to (replication deltas)", "item 4")
         if metrics_port is not None:
             _refuse("metrics_port (the Prometheus exporter)", "item 8")
         from sentinel_tpu_torch.native import lib as native_lib
@@ -195,6 +202,23 @@ class NativeTokenServer:
         self.profile_dir = profile_dir
         self.profiler = ProfilerHook(default_dir=profile_dir)
         self._gauge_fns: dict = {}
+        # HA state snapshots: restored into a cold service at start, saved
+        # every snapshot_period_s and once more at stop
+        self.snapshot_dir = snapshot_dir or os.environ.get(
+            "SENTINEL_SNAPSHOT_DIR"
+        ) or None
+        self.snapshot_period_s = snapshot_period_s
+        self._snapshots = None
+        # warm-standby replication roles: standby_of= refuses data-plane
+        # traffic with TokenStatus.STANDBY until promoted while rev-3
+        # frames stream state in; replicate_to= ships deltas out
+        self.standby_of = standby_of
+        self.promote_after_ms = promote_after_ms
+        self.replicate_to = list(replicate_to) if replicate_to else None
+        self.repl_interval_ms = repl_interval_ms
+        self.applier = None
+        self.replicator = None
+        self._repl_sessions: dict = {}  # (fd, gen) → ReplSession
         # rev-7 push plane (cluster.push): sinks registered per (fd, gen)
         # at CTRL_OPEN hand encoded push frames to door.send — the same
         # non-blocking C++ send queue the control replies use, which also
@@ -221,20 +245,53 @@ class NativeTokenServer:
             idle_ttl_s=self.idle_ttl_s,
             arena_cap=self.arena_cap,
             profile_dir=self.profile_dir,
+            snapshot_dir=self.snapshot_dir,
+            snapshot_period_s=self.snapshot_period_s,
             shed_age_ms=self.shed_age_ms,
             drain_timeout_s=self.drain_timeout_s,
             overload=self.overload,
+            standby_of=self.standby_of,
+            promote_after_ms=self.promote_after_ms,
+            replicate_to=self.replicate_to,
+            repl_interval_ms=self.repl_interval_ms,
             shm_dir=self.shm_dir,
             shm_spin_us=self.shm_spin_us,
             push=self.push_hub.enabled,
         )
+
+    @property
+    def is_standby(self) -> bool:
+        """True while this server refuses data-plane traffic (unpromoted
+        warm standby)."""
+        return self.applier is not None and not self.applier.promoted
+
+    def promote(self, reason: str = "manual") -> bool:
+        """Promote a standby to serving. Returns True if the server was a
+        standby and is now (or already was) promoted."""
+        if self.applier is None:
+            return False
+        self.applier.promote(reason)
+        return True
 
     # -- lifecycle ----------------------------------------------------------
     def start(self) -> None:
         if self._door is not None:
             return
         self.service.warmup()
+        if self.snapshot_dir:
+            from sentinel_tpu_torch.ha.snapshot import restore_latest
+
+            if not self.service.current_rules():  # cold service only
+                restore_latest(self.service, self.snapshot_dir)
         self.service.reopen()
+        if self.standby_of is not None:
+            # before the listener: the first control frame a standby sees
+            # may be the primary's REPL_HELLO
+            from sentinel_tpu_torch.ha.replication import StandbyApplier
+
+            self.applier = StandbyApplier(
+                self.service, promote_after_ms=self.promote_after_ms,
+            ).start()
         self._stop.clear()
         self._intake_stop.clear()
         self._abandon.clear()
@@ -374,6 +431,21 @@ class NativeTokenServer:
         # hub half of the clusterServerStats `push` block (single-slot
         # provider, same contract as the asyncio door's)
         _SM.register_push_provider(self.push_hub.stats)
+        if self.snapshot_dir:
+            from sentinel_tpu_torch.ha.snapshot import SnapshotManager
+
+            self._snapshots = SnapshotManager(
+                self.service, self.snapshot_dir,
+                period_s=self.snapshot_period_s,
+            ).start()
+        if self.replicate_to:
+            from sentinel_tpu_torch.ha.replication import ReplicationSender
+
+            self.replicator = ReplicationSender(
+                self.service, self.replicate_to,
+                interval_ms=self.repl_interval_ms,
+                sender_id=f"{self.host}:{self.port}",
+            ).start()
         record_log.info(
             "native token server listening on %s:%d "
             "(%d intake shards, %d dispatchers)",
@@ -426,6 +498,16 @@ class NativeTokenServer:
     def stop(self) -> None:
         if self._door is None:
             return
+        if self.replicator is not None:
+            self.replicator.stop()
+            self.replicator = None
+        if self.applier is not None:
+            self.applier.stop()
+            self.applier = None
+        self._repl_sessions.clear()
+        if self._snapshots is not None:
+            self._snapshots.stop(final_save=True)
+            self._snapshots = None
         if self.profiler.active:
             self.profiler.stop()
         for name, fn in self._gauge_fns.items():
@@ -603,6 +685,29 @@ class NativeTokenServer:
                     _TR.record_many(
                         _TR.CLIENT_IN, pull[3][2], shard=shard, aux=n
                     )
+                if self.is_standby:
+                    # unpromoted warm standby: the data plane is closed.
+                    # Refuse the whole pull with STANDBY so a failover
+                    # client walks on to the live primary (no retry hint:
+                    # this is not backpressure)
+                    _SM.count_shed("standby", n)
+                    if _TR.ARMED:
+                        _TR.record_many(
+                            _TR.SHED, pull[3][2], shard=shard, aux=n
+                        )
+                    status = np.full(n, _STANDBY, np.int8)
+                    _SM.record_verdict_batch(status, None, ())
+                    try:
+                        door.submit(
+                            pull[3], status, np.zeros(n, np.int32),
+                            np.zeros(n, np.int32),
+                        )
+                    except Exception:
+                        if not self._stop.is_set():
+                            record_log.exception(
+                                "native standby submit failed"
+                            )
+                    continue
                 _SM.batch_size.record(n)
                 self.overload.note_enqueued(n)
                 give_up = (
@@ -1053,19 +1158,38 @@ class NativeTokenServer:
                 address = self._addr_by_conn.pop((fd, gen), None)
             if address:
                 self.connections.remove_address(address)
+            self._repl_sessions.pop((fd, gen), None)
             return
         # kind == CTRL_FRAME: a non-data-plane request
         with self._addr_lock:
             address = self._addr_by_conn.get((fd, gen), f"fd{fd}")
         # rev-3 replication frames ride the control lane but are not
-        # requests (decode_request would reject their type bytes); this
-        # server is never a standby, so it closes the connection, as the
-        # reference does on a server that is not one
+        # requests (decode_request would reject their type bytes): route
+        # them to the standby applier's per-connection session
         if len(payload) >= 5 and P.peek_type(payload) in P.REPL_TYPES:
-            record_log.warning(
-                "repl frame on non-standby server; closing %s", address,
-            )
-            door.close_conn(fd, gen)
+            if self.applier is None:
+                record_log.warning(
+                    "repl frame on non-standby server; closing %s",
+                    address,
+                )
+                door.close_conn(fd, gen)
+                return
+            sess = self._repl_sessions.get((fd, gen))
+            if sess is None:
+                sess = self.applier.connection()
+                self._repl_sessions[(fd, gen)] = sess
+            try:
+                sess.handle(
+                    payload,
+                    lambda b, fd=fd, gen=gen, door=door: door.send(
+                        fd, gen, b
+                    ),
+                )
+            except ValueError:
+                record_log.warning("torn repl stream; closing %s",
+                                   address)
+                self._repl_sessions.pop((fd, gen), None)
+                door.close_conn(fd, gen)
             return
         # rev-4 namespace-move frames: no MoveTarget in this package yet
         # (ROADMAP item 5), so the same treatment plus a counter
@@ -1108,6 +1232,10 @@ class NativeTokenServer:
                 record_log.warning("bad outcome frame; closing %s", address)
                 door.close_conn(fd, gen)
                 return
+            if self.is_standby:
+                # outcome columns replicate from the primary; counting here
+                # would double on promotion
+                return
             self.service.report_outcomes(ofids, orts, oexcs, oxid)
             return
         try:
@@ -1137,6 +1265,10 @@ class NativeTokenServer:
         if _TR.ARMED:
             _TR.record(_TR.LEASE, xid=xid, aux=want)
         self.connections.touch(address)
+        if self.is_standby:
+            # proof-of-life refusal, same as the decision path: the client
+            # falls back to per-request RPCs
+            return P.encode_lease_response(xid, lmt, _STANDBY)
         service = self.service
         try:
             if lmt == P.MsgType.LEASE_GRANT:
@@ -1169,6 +1301,8 @@ class NativeTokenServer:
         if _TR.ARMED:
             _TR.record(_TR.HIER, xid=xid)
         self.connections.touch(address)
+        if self.is_standby:
+            return P.encode_lease_response(xid, hmt, _STANDBY)
         return P.encode_lease_response(xid, hmt, P.NOT_LEASABLE_STATUS)
 
     def _handle_control(self, req, address: str) -> P.FlowResponse:
@@ -1177,6 +1311,10 @@ class NativeTokenServer:
             count = self.connections.add(req.namespace, address)
             return P.FlowResponse(req.xid, P.MsgType.PING, 0, remaining=count)
         self.connections.touch(address)
+        if self.is_standby:
+            # control-lane verdicts get the same closed-door refusal as the
+            # data plane (PING above still answers: standbys stay pingable)
+            return P.FlowResponse(req.xid, req.msg_type, _STANDBY)
         if req.msg_type == P.MsgType.PARAM_FLOW:
             r = service.request_params_token(
                 req.flow_id, req.count, req.param_hashes

@@ -20,9 +20,12 @@ namespaces and degrade (circuit-breaker) rules; completion reports
 (``report_outcomes``, the outcome step on the service's device) and their
 reads (``outcome_stats``, ``breaker_stats``, ``metrics_snapshot``); token
 leases (the LEASED column); cluster concurrency (host-only,
-:mod:`cluster.concurrent`); and the HA snapshot (``export_state`` /
+:mod:`cluster.concurrent`); the HA snapshot (``export_state`` /
 ``import_state``, the reference's dict layout, so either package restores
-the other's capture).
+the other's capture); and warm-standby replication (``replication_enable``,
+``export_delta``, ``apply_replication_delta``: the dirty rows of each plane
+since the last tick, keyed by flow_id, namespace and param rule, the
+reference's delta document key for key).
 
 The service also feeds what a front door serves beside the verdicts: the
 rev-7 push plane (``attach_push_hub``: lease recalls, rule epochs, breaker
@@ -31,11 +34,11 @@ per served batch the server metrics' verdict counters
 (``ServerMetrics.record_verdict_batch``, which feeds the timeline and the
 SLO plane) and the flight recorder's device hops.
 
-Later slices: replication deltas, namespace export/import and MOVE (the
-MOVING set is always empty here), the hierarchy tier (``hierarchy`` stays
-None, so the door refuses hierarchy frames as the reference does on a
-server with no coordinator), and the host sinks of completion reports and
-breaker edges. Where the reference feeds those, the code below leaves a
+Later slices: namespace export/import and MOVE (the MOVING set is always
+empty here, and no MOVE import marks fat param rows dirty), the hierarchy
+tier (``hierarchy`` stays None, so the door refuses hierarchy frames as the
+reference does on a server with no coordinator), and the host sinks of
+completion reports and breaker edges. Where the reference feeds those, the code below leaves a
 comment marked ``seam``.
 """
 
@@ -73,6 +76,7 @@ from sentinel_tpu_torch.engine.decide import (
 from sentinel_tpu_torch.engine.param import (
     NEVER as PARAM_NEVER,
     ParamConfig,
+    ParamState,
     hash_indices,
     make_param_state,
     param_decide,
@@ -324,6 +328,9 @@ class DefaultTokenService(TokenService):
             self.config, [], device=self.device
         )
         self._lookup = (np.empty(0, np.int64), np.empty(0, np.int32))
+        # slot → flow_id (-1 = free), the inverse of _lookup: how a
+        # replication delta keys its rows without walking slot_of
+        self._flow_of_slot = np.full(self.config.max_flows, -1, np.int64)
         # slot → namespace row (names, int32[max_flows], -1 = no rule), for
         # the per-namespace verdict and outcome counters of the metric plane
         self._ns_snapshot: Tuple[Tuple[str, ...], np.ndarray] = (
@@ -380,8 +387,16 @@ class DefaultTokenService(TokenService):
         )
         self._param_rules_src: Dict[int, ClusterParamFlowRule] = {}
         # the rule generation: bumped on every flow or param rule reload and
-        # announced to clients as the rule epoch on a flow reload
+        # announced to clients as the rule epoch on a flow reload. Slot
+        # assignments (the replication delta's row keys) hold only within
+        # one generation, so a bump also sends the replication sender to a
+        # full snapshot.
         self._state_gen = 0
+        # warm-standby replication (ha.replication): the slots each plane
+        # dirtied since the last export_delta; None until
+        # replication_enable, so the serving path pays one `is not None`
+        # check when no standby is attached
+        self._dirty: Optional[Dict[str, set]] = None
         # rev-7 push plane: the front doors' hubs; emits are fire-and-forget
         # through non-blocking sinks, safe under self._lock
         self._push_hubs: List[object] = []
@@ -467,6 +482,9 @@ class DefaultTokenService(TokenService):
                 np.fromiter((k for k, _ in items), np.int64, len(items)),
                 np.fromiter((v for _, v in items), np.int32, len(items)),
             )
+            flow_of = np.full(self.config.max_flows, -1, np.int64)
+            flow_of[self._lookup[1]] = self._lookup[0]
+            self._flow_of_slot = flow_of
             n_ns = max(self._index.ns_of.values(), default=-1) + 1
             ns_names = [""] * n_ns
             for ns_name, row in self._index.ns_of.items():
@@ -489,6 +507,8 @@ class DefaultTokenService(TokenService):
                 del self._leases[lease.lease_id]
             self._lease_stats["revoked"] += len(dead)
             self._state_gen += 1
+            if self._dirty is not None:
+                self._dirty = _new_dirty()
             gen = self._state_gen
         # rev-7 push, after the locks drop: recall the leases the reload
         # killed and announce the new rule epoch clients fence on
@@ -799,6 +819,8 @@ class DefaultTokenService(TokenService):
             self._state, verdicts = step(
                 self._state, self._table, batch, now
             )
+            if self._dirty is not None:
+                self._mark_dirty_locked(slots)
         if _TR.ARMED:  # flight recorder: device step submitted
             _TR.record(_TR.DEVICE_IN, aux=n)
 
@@ -898,6 +920,10 @@ class DefaultTokenService(TokenService):
             self._state, verdicts = step(
                 self._state, self._table, block, now
             )
+            if self._dirty is not None:
+                self._mark_dirty_locked(
+                    np.concatenate([p[0] for p in preps])
+                )
         _SM.record_fused(depth)
         if _TR.ARMED:  # flight recorder: fused group submitted
             _TR.record(_TR.FUSE, aux=depth)
@@ -947,6 +973,18 @@ class DefaultTokenService(TokenService):
         fold the device's transitions into the host mirror (rate-limited)."""
         if (status == int(TokenStatus.DEGRADED)).any():
             self._breaker_scan()
+
+    def _mark_dirty_locked(self, slots: np.ndarray) -> None:
+        """Replication bookkeeping of one device step: the slots it
+        touched are flow-dirty, and those with a breaker breaker-dirty
+        (transitions happen only on batched rows). Caller holds
+        ``self._lock`` and has checked ``self._dirty``."""
+        touched = np.unique(slots[slots >= 0]).tolist()
+        self._dirty["flow"].update(touched)
+        if self._has_breakers:
+            self._dirty["breaker"].update(
+                s for s in touched if s in self._breaker_slots
+            )
 
     def request_batch(self, requests) -> List[TokenResult]:
         if not requests:
@@ -1004,6 +1042,8 @@ class DefaultTokenService(TokenService):
                 self._param_rules[rule.flow_id] = (slot, rule.count, items)
             self._param_rules_src = {r.flow_id: r for r in rules}
             self._state_gen += 1
+            if self._dirty is not None:
+                self._dirty = _new_dirty()
 
     def load_namespace_param_rules(
         self, namespace: str, rules: List[ClusterParamFlowRule]
@@ -1090,6 +1130,8 @@ class DefaultTokenService(TokenService):
                 now,
                 idx_slim=idx_slim,
             )
+            if self._dirty is not None:
+                self._dirty["param"].add(int(slot))
         return admit[:n]
 
     # -- concurrent (semaphore) mode ----------------------------------------
@@ -1155,6 +1197,8 @@ class DefaultTokenService(TokenService):
         if int(ws.starts[idx]) != aligned:
             return
         ws.counts[lease.slot, idx, int(ClusterEvent.LEASED)].sub_(unused)
+        if self._dirty is not None:
+            self._dirty["flow"].add(int(lease.slot))
 
     @staticmethod
     def _fold_into_current(ws, spec, now: int, rows, sums):
@@ -1226,6 +1270,8 @@ class DefaultTokenService(TokenService):
         row = [0] * N_CLUSTER_EVENTS
         row[int(ClusterEvent.LEASED)] = grant
         self._fold_into_current(st.flow, spec, now, [slot], [row])
+        if self._dirty is not None:
+            self._dirty["flow"].add(int(slot))
         lease_id = next(self._lease_seq)
         self._leases[lease_id] = _Lease(
             lease_id, flow_id, slot, grant, now, now + self.lease_ttl_ms
@@ -1298,18 +1344,19 @@ class DefaultTokenService(TokenService):
         counting: rule sources, slot assignments, every state plane, the
         param sketch and the engine epoch, as numpy copies under the
         reference's keys and dtypes (the hierarchy tier's ``hier`` block is
-        a later slice)."""
+        a later slice). The planes are cloned on the device under the
+        service lock and brought to the host after it drops, so the
+        capture holds the lock for launches only, never for the copy."""
+        fetch = _HostCopy()
 
-        def _np(t: torch.Tensor) -> np.ndarray:
-            return t.detach().cpu().numpy().copy()
-
-        def _win(ws) -> Dict[str, np.ndarray]:
-            return {"starts": _np(ws.starts), "counts": _np(ws.counts)}
+        def _win(ws) -> Dict[str, object]:
+            return {"starts": fetch.add(ws.starts.clone()),
+                    "counts": fetch.add(ws.counts.clone())}
 
         with self._rules_mutex, self._lock:
             now = self._engine_now()  # pins the epoch, runs a due rebase
             st = self._state
-            return {
+            state = {
                 "engine_now": int(now),
                 "epoch_ms": int(self._epoch_ms),
                 "wall_ms": int(_clock.now_ms()),
@@ -1331,12 +1378,20 @@ class DefaultTokenService(TokenService):
                 "occupy": _win(st.occupy),
                 "ns": _win(st.ns),
                 "outcome": _win(st.outcome),
-                "shaping": {f: _np(getattr(st.shaping, f))
+                "shaping": {f: fetch.add(getattr(st.shaping, f).clone())
                             for f in ShapingState._fields},
-                "breaker": {f: _np(getattr(st.breaker, f))
+                "breaker": {f: fetch.add(getattr(st.breaker, f).clone())
                             for f in BreakerState._fields},
-                "param": interop.param_state_to_numpy(self._param_state),
+                "param": {
+                    f: fetch.add(getattr(self._param_state, f).clone())
+                    for f in ParamState._fields
+                },
             }
+        fetch.run()
+        for key in ("flow", "occupy", "ns", "outcome", "shaping", "breaker",
+                    "param"):
+            state[key] = {f: fetch.get(h) for f, h in state[key].items()}
+        return state
 
     def import_state(self, state: Dict[str, object]) -> None:
         """Restore an :meth:`export_state` capture (of either package) into
@@ -1469,6 +1524,240 @@ class DefaultTokenService(TokenService):
                 pst.starts.copy_(torch.as_tensor(np.array(p_s), device=dev))
                 self._epoch_ms = int(state["epoch_ms"])
 
+    # -- warm-standby delta replication (ha.replication) ----------------------
+    def replication_enable(self) -> None:
+        """Arm dirty-slot tracking, so :meth:`export_delta` has rows to
+        ship. Idempotent; until called the serving paths skip the
+        bookkeeping."""
+        with self._lock:
+            if self._dirty is None:
+                self._dirty = _new_dirty()
+
+    def replication_disable(self) -> None:
+        with self._lock:
+            self._dirty = None
+
+    def state_generation(self) -> int:
+        """Bumped on every rule or param rule reload. A sender that sees a
+        bump must ship a full snapshot before more deltas."""
+        with self._lock:
+            return self._state_gen
+
+    def export_delta(self) -> Dict[str, object]:
+        """Collect and clear the counter rows dirtied since the last call.
+
+        The reference's document, key for key: the window ``starts``
+        vectors (always shipped; they advance with engine time), then the
+        dirty rows keyed by flow_id, namespace name and param flow_id, so
+        that a standby lands them on its own slot assignment. ``gen`` is
+        the generation the rows were collected under and ``epoch_ms`` pins
+        the engine timeline. An idle tick gives a starts-only document, the
+        sender's heartbeat. The param payload is the slim twin's rows when
+        the twin is on, the fat rows otherwise. Destructive: a sender that
+        fails to deliver falls back to a full snapshot.
+
+        Under the lock the rows are gathered on the device
+        (``index_select``, fresh tensors that no later step writes); they
+        reach the host in one copy after the lock drops."""
+        fetch = _HostCopy()
+        with self._rules_mutex, self._lock:
+            if self._dirty is None:
+                raise RuntimeError("replication tracking not enabled")
+            dirty, self._dirty = self._dirty, _new_dirty()
+            flow_slots = sorted(dirty["flow"])
+            param_slots = sorted(dirty["param"])
+            param_fat_slots = sorted(dirty["param_fat"])
+            outcome_slots = sorted(dirty["outcome"])
+            breaker_slots = sorted(dirty["breaker"])
+            now = self._engine_now()  # pins the epoch, runs a due rebase
+            st, pst = self._state, self._param_state
+            delta: Dict[str, object] = {
+                "gen": int(self._state_gen),
+                "engine_now": int(now),
+                "epoch_ms": int(self._epoch_ms),
+                "wall_ms": int(_clock.now_ms()),
+                "flow_starts": fetch.add(st.flow.starts.clone()),
+                "occupy_starts": fetch.add(st.occupy.starts.clone()),
+                "ns_starts": fetch.add(st.ns.starts.clone()),
+                "outcome_starts": fetch.add(st.outcome.starts.clone()),
+                "param_starts": fetch.add(pst.starts.clone()),
+            }
+
+            def rows(t: torch.Tensor, slots):
+                idx = self._dev(np.asarray(slots, np.int64))
+                return fetch.add(t.index_select(0, idx))
+
+            flow_of = self._flow_of_slot
+
+            def ids(slots):
+                return flow_of[np.asarray(slots, np.int64)].tolist()
+
+            if flow_slots:
+                delta["flow_ids"] = ids(flow_slots)
+                delta["flow_counts"] = rows(st.flow.counts, flow_slots)
+                delta["occupy_counts"] = rows(st.occupy.counts, flow_slots)
+                # shaper clocks: raw engine-ms in the epoch the delta pins
+                delta["shaping_lpt"] = rows(st.shaping.lpt, flow_slots)
+                delta["shaping_warm_tokens"] = rows(st.shaping.warm_tokens,
+                                                    flow_slots)
+                delta["shaping_warm_filled"] = rows(st.shaping.warm_filled,
+                                                    flow_slots)
+                # the namespace guard rows these slots feed
+                ns_names, slot_ns = self._ns_snapshot
+                ns_rows = np.unique(slot_ns[np.asarray(flow_slots)])
+                ns_rows = ns_rows[ns_rows >= 0].tolist()
+                if ns_rows:
+                    delta["ns_names"] = [ns_names[r] for r in ns_rows]
+                    delta["ns_counts"] = rows(st.ns.counts, ns_rows)
+            if outcome_slots:
+                # own dirty set: reports and pulls dirty different slots on
+                # different cadences
+                delta["outcome_fids"] = ids(outcome_slots)
+                delta["outcome_counts"] = rows(st.outcome.counts,
+                                               outcome_slots)
+            if breaker_slots:
+                delta["breaker_fids"] = ids(breaker_slots)
+                delta["breaker_state"] = rows(st.breaker.state,
+                                              breaker_slots)
+                delta["breaker_opened"] = rows(st.breaker.opened_ms,
+                                               breaker_slots)
+                delta["breaker_probe"] = rows(st.breaker.probe_ms,
+                                              breaker_slots)
+            if param_slots:
+                prev = {s: fid for fid, (s, _, _) in self._param_rules.items()}
+                delta["param_fids"] = [int(prev[s]) for s in param_slots]
+                if self.param_config.slim_enabled:
+                    # the every-tick document ships the slim twin's rows;
+                    # fat rows ship in full snapshots, and with the rows a
+                    # MOVE import folded (param_fat, a later slice)
+                    delta["param_slim"] = rows(pst.slim, param_slots)
+                    if param_fat_slots:
+                        delta["param_fat_fids"] = [
+                            int(prev[s]) for s in param_fat_slots
+                        ]
+                        delta["param_counts"] = rows(pst.counts,
+                                                     param_fat_slots)
+                else:
+                    delta["param_counts"] = rows(pst.counts, param_slots)
+        fetch.run()
+        return {key: fetch.get(v) for key, v in delta.items()}
+
+    def apply_replication_delta(self, delta: Dict[str, object]) -> None:
+        """Land a primary's :meth:`export_delta` on THIS (standby) service.
+
+        Rows remap by flow_id, namespace and param flow_id onto the local
+        slot assignment. First the columns whose ring slot the primary
+        advanced are zeroed on every row the delta does not carry (what the
+        primary's roll did), for every window and the param plane, slim
+        twin and its authority flags included; then the carried rows are
+        scattered. A foreign engine epoch, or a flow, namespace or param
+        rule this service does not know, raises ``ValueError`` before
+        anything mutates: the standby's base predates a reload on the
+        primary and must ask for a snapshot."""
+
+        def _slots(ids, of, what):
+            out = []
+            for key in ids:
+                s = of(key)
+                if s is None:
+                    raise ValueError(f"delta names unknown {what} {key!r}")
+                out.append(s)
+            return self._dev(np.asarray(out, np.int64))
+
+        def _flow(fid):
+            return self._index.slot_of.get(int(fid))
+
+        def _param(fid):
+            entry = self._param_rules.get(int(fid))
+            return None if entry is None else entry[0]
+
+        with self._rules_mutex, self._lock:
+            if (self._epoch_ms is None
+                    or int(delta["epoch_ms"]) != self._epoch_ms):
+                raise ValueError("replication epoch mismatch")
+            st, pst = self._state, self._param_state
+            # (destination, row index, rows) per scatter, all resolved
+            # before the first write
+            scatters = []
+            flow_ids = delta.get("flow_ids")
+            if flow_ids:
+                fs = _slots(flow_ids, _flow, "flow")
+                scatters += [(st.flow.counts, fs, "flow_counts"),
+                             (st.occupy.counts, fs, "occupy_counts")]
+                if "shaping_lpt" in delta:
+                    scatters += [
+                        (st.shaping.lpt, fs, "shaping_lpt"),
+                        (st.shaping.warm_tokens, fs, "shaping_warm_tokens"),
+                        (st.shaping.warm_filled, fs, "shaping_warm_filled"),
+                    ]
+            out_starts = delta.get("outcome_starts")
+            if delta.get("outcome_fids"):
+                os_ = _slots(delta["outcome_fids"], _flow, "flow")
+                scatters.append((st.outcome.counts, os_, "outcome_counts"))
+            if delta.get("breaker_fids"):
+                bs = _slots(delta["breaker_fids"], _flow, "flow")
+                scatters += [(st.breaker.state, bs, "breaker_state"),
+                             (st.breaker.opened_ms, bs, "breaker_opened"),
+                             (st.breaker.probe_ms, bs, "breaker_probe")]
+            if delta.get("ns_names"):
+                nr = _slots(delta["ns_names"], self._index.ns_of.get,
+                            "namespace")
+                scatters.append((st.ns.counts, nr, "ns_counts"))
+            param_scatters = []
+            slim_rows = False
+            if delta.get("param_fids"):
+                if "param_slim" in delta:
+                    slim_rows = True
+                    pr = _slots(delta["param_fids"], _param, "param rule")
+                    param_scatters.append((pst.slim, pr, "param_slim"))
+                    if delta.get("param_fat_fids"):
+                        fr = _slots(delta["param_fat_fids"], _param,
+                                    "param rule")
+                        param_scatters.append((pst.counts, fr,
+                                               "param_counts"))
+                elif "param_counts" in delta:
+                    pr = _slots(delta["param_fids"], _param, "param rule")
+                    param_scatters.append((pst.counts, pr, "param_counts"))
+            rows = {}
+            for dst, idx, key in scatters + param_scatters:
+                arr = np.asarray(delta[key])
+                if arr.shape != (idx.shape[0],) + tuple(dst.shape[1:]):
+                    raise ValueError(
+                        f"delta geometry mismatch: {key} {arr.shape}"
+                    )
+                rows[key] = self._dev(arr).to(dst.dtype)
+            starts = {}
+            for ws, key in ((st.flow, "flow_starts"),
+                            (st.occupy, "occupy_starts"),
+                            (st.ns, "ns_starts"), (pst, "param_starts"),
+                            (st.outcome, "outcome_starts")):
+                if key == "outcome_starts" and out_starts is None:
+                    continue  # a pre-outcome sender: keep the local ring
+                arr = np.asarray(delta[key])
+                if arr.shape != tuple(ws.starts.shape):
+                    raise ValueError(
+                        f"delta geometry mismatch: {key} {arr.shape}"
+                    )
+                starts[key] = (ws, self._dev(arr).to(ws.starts.dtype))
+            # -- validated: mutate --
+            for ws, new in starts.values():
+                keep = (ws.starts == new).to(ws.counts.dtype)
+                ws.counts.mul_(keep.view((1, -1) + (1,) * (ws.counts.dim()
+                                                            - 2)))
+            p_changed = starts["param_starts"][1] != pst.starts
+            pst.slim.mul_((~p_changed).to(pst.slim.dtype).view(1, -1, 1, 1))
+            pst.slim_auth.logical_and_(~p_changed)
+            for dst, idx, key in scatters + param_scatters:
+                dst.index_copy_(0, idx, rows[key])
+            if slim_rows:
+                # landing slim rows makes every live bucket
+                # slim-authoritative: the decide path then serves fat plus
+                # slim, which double-counts at most one snapshot-to-delta
+                # gap (the safe direction) until those buckets rotate off
+                pst.slim_auth.fill_(True)
+            for ws, new in starts.values():
+                ws.starts.copy_(new)
+
     # -- reads of the flow and outcome planes ---------------------------------
     def metrics_snapshot(self) -> Dict[int, Dict[str, float]]:
         """Per-flow windowed rates from the flow and outcome planes (two
@@ -1572,6 +1861,16 @@ class DefaultTokenService(TokenService):
                 self._outcome_counts["exceptions"] += int(
                     (exc_in & valid).sum())
                 self._outcome_counts["rt_sum_ms"] += int(rt[valid].sum())
+                if self._dirty is not None:
+                    touched = set(np.unique(slots[valid]).tolist())
+                    self._dirty["outcome"].update(touched)
+                    if self._has_breakers:
+                        # a report can resolve a probe (HALF_OPEN to
+                        # CLOSED or OPEN), so reported breaker slots are
+                        # breaker-dirty too
+                        self._dirty["breaker"].update(
+                            touched & self._breaker_slots
+                        )
         # seam: the per-namespace fan-out of the accepted rows (timeline,
         # SLO burn, flight recorder, stat log) goes here, by
         # self._ns_snapshot
@@ -1708,6 +2007,55 @@ class DefaultTokenService(TokenService):
                     entry["probe_age_ms"] = now - int(probe[slot])
                 flows[int(fid)] = entry
             return {"rules": len(self._degrade_rules_src), "flows": flows}
+
+
+_DIRTY_PLANES = ("flow", "param", "param_fat", "outcome", "breaker")
+
+
+def _new_dirty() -> Dict[str, set]:
+    return {plane: set() for plane in _DIRTY_PLANES}
+
+
+class _HostCopy:
+    """Device tensors bound for the host, brought over in one copy.
+
+    :meth:`add` takes a fresh tensor (a clone or a gather, which no later
+    step writes) and returns a placeholder; :meth:`run`, called after the
+    service lock drops, packs the tensors into one byte buffer and copies
+    that to the host once; :meth:`get` then turns a placeholder into its
+    numpy array (its tensor's dtype and shape) and passes any other value
+    through. The host arrays never alias live state."""
+
+    class _Ref:
+        __slots__ = ("i",)
+
+        def __init__(self, i: int):
+            self.i = i
+
+    def __init__(self):
+        self._parts: List[torch.Tensor] = []
+        self._host: List[np.ndarray] = []
+
+    def add(self, t: torch.Tensor) -> "_HostCopy._Ref":
+        self._parts.append(t.contiguous())
+        return self._Ref(len(self._parts) - 1)
+
+    def run(self) -> None:
+        if not self._parts:
+            return
+        flat = torch.cat(
+            [t.reshape(-1).view(torch.uint8) for t in self._parts]
+        ).cpu().numpy()
+        off = 0
+        for t in self._parts:
+            nbytes = t.numel() * t.element_size()
+            dtype = torch.empty(0, dtype=t.dtype).numpy().dtype
+            self._host.append(
+                flat[off:off + nbytes].view(dtype).reshape(tuple(t.shape)))
+            off += nbytes
+
+    def get(self, v):
+        return self._host[v.i] if isinstance(v, self._Ref) else v
 
 
 def _remap(new_of: Dict, old_of: Dict) -> Tuple[np.ndarray, np.ndarray]:

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import dataclasses
 import enum
+import functools
 from typing import Dict
 
 import numpy as np
@@ -115,20 +116,34 @@ def param_state_from_numpy(d: Dict[str, np.ndarray],
 _CASTS = {"int": int, "float": float, "str": str}
 
 
+@functools.lru_cache(maxsize=None)
+def _field_plan(kind):
+    """``(name, cast)`` per field of ``kind``: the port's enum for an enum
+    field, ``int`` / ``float`` / ``str`` for a plain one, else None."""
+    plan = []
+    for f in dataclasses.fields(kind):
+        if isinstance(f.default, enum.Enum):
+            plan.append((f.name, type(f.default)))
+        else:
+            plan.append((f.name, _CASTS.get(f.type)))
+    return tuple(plan)
+
+
 def port_rule(rule, kind):
     """The port's rule dataclass ``kind`` (``ClusterFlowRule``,
     ``DegradeRule``, ``ClusterParamFlowRule``, ...) built from any object
     that has its fields, read by name: enum fields take the port's enum of
     the same value, plain int / float / str fields are cast, others are
-    kept. A field the object lacks keeps ``kind``'s default."""
+    kept. A field the object lacks keeps ``kind``'s default. A rule that is
+    already a ``kind`` (frozen) comes back as is."""
+    if type(rule) is kind:
+        return rule
     vals = {}
-    for f in dataclasses.fields(kind):
-        if not hasattr(rule, f.name):
+    for name, cast in _field_plan(kind):
+        if not hasattr(rule, name):
             continue
-        v = getattr(rule, f.name)
-        if isinstance(f.default, enum.Enum):
-            v = type(f.default)(int(v))
-        elif f.type in _CASTS:
-            v = _CASTS[f.type](v)
-        vals[f.name] = v
+        v = getattr(rule, name)
+        if cast is not None:
+            v = cast(int(v)) if issubclass(cast, enum.Enum) else cast(v)
+        vals[name] = v
     return kind(**vals)

@@ -1,7 +1,8 @@
 """The port imports neither JAX nor the JAX package: a fresh interpreter
 imports every ``sentinel_tpu_torch`` module, then ``jax`` and
 ``sentinel_tpu`` must be absent from ``sys.modules``; also after the native
-door's library is built and loaded, and a door has served a frame."""
+door's library is built and loaded, and a door has served a frame; and after
+a standby door has applied a REPL snapshot and been promoted."""
 
 import os
 import pkgutil
@@ -37,7 +38,7 @@ def test_port_modules_import_without_jax():
                 "metrics.timeline", "metrics.server", "metrics.profiler",
                 "trace.ring", "trace.spans", "trace.slo", "trace.blackbox",
                 "overload", "overload.admission", "native.build",
-                "native.lib"):
+                "native.lib", "ha", "ha.snapshot", "ha.replication"):
         assert f"sentinel_tpu_torch.{mod}" in names, mod
     code = (
         "import importlib, sys\n"
@@ -96,6 +97,66 @@ def test_native_door_serves_without_jax():
         pytest.skip("no C++ compiler on PATH to build the native door")
     out = subprocess.run(
         [sys.executable, "-I", "-c", _SERVE_ONE_FRAME.format(repo=REPO)],
+        capture_output=True, text=True, timeout=300, cwd=REPO,
+    )
+    assert out.returncode == 0, out.stderr[-2000:]
+
+
+_STANDBY_PROMOTES = """
+import socket, sys
+sys.path.insert(0, {repo!r})
+import numpy as np
+from sentinel_tpu_torch.cluster import protocol as P
+from sentinel_tpu_torch.cluster.server_native import NativeTokenServer
+from sentinel_tpu_torch.cluster.token_service import DefaultTokenService
+from sentinel_tpu_torch.engine import ClusterFlowRule, EngineConfig
+from sentinel_tpu_torch.ha.replication import encode_snapshot_blob
+cfg = EngineConfig(max_flows=8, max_namespaces=2, batch_size=64)
+primary = DefaultTokenService(cfg, device="cpu")
+primary.load_rules([ClusterFlowRule(1, 3.0)])
+primary.request_batch_arrays(np.full(2, 1, np.int64))
+blob = encode_snapshot_blob(primary.export_state())
+server = NativeTokenServer(DefaultTokenService(cfg, device="cpu"), port=0,
+                           idle_ttl_s=None, standby_of="primary")
+server.start()
+try:
+    s = socket.create_connection(("127.0.0.1", server.port), timeout=30)
+    reader = P.FrameReader()
+
+    pending = []
+
+    def recv():  # the next reply; push frames (rev 7) set aside
+        while True:
+            while pending:
+                payload = pending.pop(0)
+                if P.peek_type(payload) not in P.PUSH_TYPES:
+                    return payload
+            pending.extend(reader.feed(s.recv(1 << 16)))
+
+    for frame in P.encode_repl_blob(3, P.MsgType.REPL_SNAPSHOT, 1, 1, blob):
+        s.sendall(frame)
+    _xid, code, _gen, seq = P.decode_repl_ack(recv())
+    assert (code, seq) == (P.ReplAck.OK, 1), code
+    s.sendall(P.encode_batch_request(7, np.full(3, 1, np.int64)))
+    assert P.decode_batch_response(recv())[1].tolist() == [9, 9, 9]
+    assert server.promote("test") and not server.is_standby
+    s.sendall(P.encode_batch_request(8, np.full(3, 1, np.int64)))
+    # the snapshot carried two of the flow's three passes
+    assert P.decode_batch_response(recv())[1].tolist() == [0, 1, 1]
+    s.close()
+finally:
+    server.stop()
+bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
+             or m == "sentinel_tpu" or m.startswith("sentinel_tpu."))
+assert not bad, bad
+"""
+
+
+def test_standby_door_applies_and_promotes_without_jax():
+    if not (shutil.which("g++") or shutil.which("c++")):
+        pytest.skip("no C++ compiler on PATH to build the native door")
+    out = subprocess.run(
+        [sys.executable, "-I", "-c", _STANDBY_PROMOTES.format(repo=REPO)],
         capture_output=True, text=True, timeout=300, cwd=REPO,
     )
     assert out.returncode == 0, out.stderr[-2000:]

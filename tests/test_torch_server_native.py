@@ -11,9 +11,12 @@ serving a CPU ``DefaultTokenService``, against the JAX package's door.
   driven by the reference's ``TokenClient``; the xid probe; push frames on a
   rule reload and a breaker trip; ``namespace_index`` against the
   reference's; the shared-memory door.
-- The refusals: ``snapshot_dir`` / ``standby_of`` / ``replicate_to`` /
-  ``metrics_port`` raise, MOVE and REPL frames close their connection, a
-  hierarchy frame gets NOT_LEASABLE, a failed native build raises.
+- The refusals: ``metrics_port`` raises (``snapshot_dir`` /
+  ``SENTINEL_SNAPSHOT_DIR``, ``standby_of`` and ``replicate_to`` are
+  accepted since the HA slice; ``tests/test_torch_replication.py`` drives
+  them), MOVE frames and REPL frames on a server that is not a standby
+  close their connection, a hierarchy frame gets NOT_LEASABLE, a failed
+  native build raises.
 
 Door tests skip only when no C++ compiler is on ``PATH``.
 """
@@ -600,14 +603,25 @@ def test_shm_door_serves_a_batch(cxx, tmp_path):
     dict(metrics_port=0),
 ])
 def test_unported_features_are_refused(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        NativeTokenServer(_service(), port=0, **kw)
+    """Only ``metrics_port`` is still refused; the HA options of the first
+    three cases are ported and land on the server's fields."""
+    if "metrics_port" in kw:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            NativeTokenServer(_service(), port=0, **kw)
+        return
+    server = NativeTokenServer(_service(), port=0, **kw)
+    (key, value), = kw.items()
+    assert getattr(server, key) == value
+    assert server.tuning_kwargs()[key] == value
+    assert not server.is_standby  # nothing is applied before start()
 
 
 def test_snapshot_dir_from_the_environment_is_refused(monkeypatch):
+    """The environment's snapshot directory is no longer refused: the door
+    takes it as its ``snapshot_dir``."""
     monkeypatch.setenv("SENTINEL_SNAPSHOT_DIR", "/nonexistent")
-    with pytest.raises(NotImplementedError, match="snapshot"):
-        NativeTokenServer(_service(), port=0)
+    assert NativeTokenServer(_service(), port=0).snapshot_dir == (
+        "/nonexistent")
 
 
 def test_move_and_repl_frames_close_their_connection(port_server):
