@@ -82,7 +82,9 @@ Builds the port's CUDA kernels from ``sentinel_tpu_torch/csrc`` (one
    breaker columns, beside its byte bound), after checking under torch's
    sync debug mode that the step makes no call that waits for the device;
    after every other phase a traced report counts the CUDA kernels a report
-   launches;
+   launches; the host sinks: the breaker-transition counters equal the sum
+   of the edges every scan returned, and the stat log's
+   ``outcome_reported`` lines the rows both services accepted;
 9. serves the port through its front door: the native C++ door (built from
    ``native/src`` with ``g++``) and ``NativeTokenServer`` over the flow
    configuration of phase 3 with phase 8's breakers, the default param
@@ -99,9 +101,11 @@ Builds the port's CUDA kernels from ``sentinel_tpu_torch/csrc`` (one
    on the system clock send pulls of each size for a few seconds (served
    verdicts/s, RTT p50 / p99, the door's fuse depths and overlapped
    dispatches, no error, one decide launch per frame dispatched);
-   PARAM_FLOW RTT per sketch; then, with the door stopped, a grouped, a
-   fused (depth 4) dispatch and a param step up to its verdict read run
-   under torch's sync debug mode;
+   PARAM_FLOW RTT per sketch; the scrape's sketch block (fat and slim
+   bytes); then, with the door stopped and one namespace moving (its rows
+   masked out and answered MOVED), a grouped, a fused (depth 4) dispatch
+   and a param step up to its verdict read run under torch's sync debug
+   mode;
 10. high availability at phase 9's widths (``phase_ha``): a primary door
    replicating every 100 ms to two standby doors, one on the kernels and
    its twin on the torch-ops cores; every frame type refused STANDBY before
@@ -118,7 +122,25 @@ Builds the port's CUDA kernels from ``sentinel_tpu_torch/csrc`` (one
    mid-window, the standby's watchdog promotes it, the admissions on a
    metered flow summed over both stay within the window plus one ship
    interval's, and the promoted standby blocks;
-11. prints the timings, the card's name and power limit, one
+11. namespace MOVE between two doors at phase 9's widths (``phase_move``):
+   the source serves phase 9's configuration, the destination the odd
+   namespaces, a torch-ops twin of the destination imports every document
+   it imports. ``ns0`` (the Zipf-hottest flow, ~1,563 flows, four param
+   rules) moves after phase 9's lockstep: the source answers MOVED with the
+   epoch for every ``ns0`` row of a grouped and a fused pull and counts
+   none; the destination's document is the source's last; four lockstep
+   rounds of ``ns0`` through the destination equal the twin, one decide
+   launch a device step and one count-min launch a PARAM_FLOW frame; a
+   MOVE_STATE frame lost between the doors (chaos ``frame_drop`` in a
+   proxy) aborts a move of ``ns2`` losslessly and a retry commits; ``ns4``
+   moves under a closed loop on the system clock with zero over-admission
+   summed over both doors; the SALSA variant (fat rows) moves a param
+   namespace with equal verdicts and rows, a folded plane that re-encodes
+   to itself and one SALSA launch a request. It prints the move's wall
+   ms, the export's ms and lock-held ms, the MOVE_STATE bytes, the
+   destination's commit and import ms, the MOVED rows and the
+   over-admission;
+12. prints the timings, the card's name and power limit, one
    ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
 
 Any failed check raises and exits non-zero. With no CUDA device, or run from
@@ -834,6 +856,12 @@ def phase_outcome(torch, dev):
         outcome_step_donating,
     )
     from sentinel_tpu_torch.engine.state import N_OUTCOME_CHANNELS, make_state
+    from sentinel_tpu_torch.metrics.server import server_metrics
+    from sentinel_tpu_torch.metrics.stat_logger import (
+        CLUSTER_LOG,
+        StatEntry,
+        stat_logger,
+    )
     from sentinel_tpu_torch.ops import decide_cuda as K
 
     mc = clock.ManualClock(1_700_000_000_040)
@@ -857,9 +885,29 @@ def phase_outcome(torch, dev):
         edges = OC.BreakerEdges()
         steps = 0
         verdicts = {}
+        # the host sinks: every edge a scan of either service returns, the
+        # rows both accepted, against the transition counters and the stat
+        # log's outcome_reported lines the run adds
+        scanned = {}
+        accepted = 0
+        for s in (svc, ref):
+            def scan(force=False, orig=s._breaker_scan):
+                got = orig(force)
+                for key, c in got.items():
+                    scanned[key] = scanned.get(key, 0) + c
+                return got
+
+            s._breaker_scan = scan
+        sm = server_metrics()
+        transitions0 = sm.breaker_transition_totals()
+        stat_log = stat_logger(CLUSTER_LOG)
+        stat_log.flush()
+        stat_path = stat_log.writer.path
+        stat_offset = (os.path.getsize(stat_path)
+                       if os.path.exists(stat_path) else 0)
 
         def check_op(kind, r, i, n, outs):
-            nonlocal steps
+            nonlocal steps, accepted
             if kind == "pull":
                 if not OC.verdicts_equal(outs):
                     raise AssertionError(f"outcome phase: verdicts differ "
@@ -871,6 +919,8 @@ def phase_outcome(torch, dev):
             elif outs[0] != outs[1]:
                 raise AssertionError(f"outcome phase: report counts "
                                      f"{outs} at round {r} step {i}")
+            else:
+                accepted += outs[0] + outs[1]
             edges.update(svc.breaker_stats())
 
         def planes_equal(label):
@@ -903,6 +953,28 @@ def phase_outcome(torch, dev):
         if o_svc != o_ref:
             raise AssertionError("outcome_stats differ")
         edges.require(trips=3, probes=3, closes=1, reopens=1)
+        names = DefaultTokenService._BR_STATE_NAMES
+        counted = {k: v - transitions0.get(k, 0)
+                   for k, v in sm.breaker_transition_totals().items()
+                   if v != transitions0.get(k, 0)}
+        want = {(names[f], names[t]): c for (f, t), c in scanned.items()}
+        if counted != want:
+            raise AssertionError(f"outcome phase: transition counters "
+                                 f"{counted} != the scans' edges {want}")
+        stat_log.flush()
+        with open(stat_path, encoding="utf-8") as fh:
+            fh.seek(stat_offset)
+            logged = sum(StatEntry.from_line(line).count for line in fh
+                         if line.split("|")[1] == "outcome_reported")
+        if logged != accepted:
+            raise AssertionError(f"outcome phase: the stat log's "
+                                 f"outcome_reported {logged} != {accepted} "
+                                 f"accepted rows")
+        for s in (svc, ref):
+            del s._breaker_scan
+        log(f"outcome sinks: transition counters {counted} equal the scans' "
+            f"edges; the stat log's outcome_reported {logged} = the rows "
+            f"both services accepted")
         degraded = verdicts.get(12, 0)
         log(f"outcome: {OUTCOME_ROUNDS} rounds over {spanned} ms, "
             f"{steps} device steps = {launches} decide launches; verdicts "
@@ -1224,6 +1296,14 @@ def phase_door(torch, dev):
         for name in ("outcome_stats", "breaker_stats", "lease_stats"):
             if getattr(svc, name)() != getattr(twin, name)():
                 raise AssertionError(f"door: {name} differs from the twin")
+        # the scrape's sketch block (PERF.md section 4's sketch bytes)
+        scraped = server_metrics().snapshot()["sketch"]
+        if (scraped["fatBytes"], scraped["slimBytes"]) != (8_388_608,
+                                                           1_048_576) or \
+                svc.sketch_stats()["impl"] != "pallas":
+            raise AssertionError(f"door: sketch block {scraped}")
+        out["sketch_block"] = scraped
+        log(f"door scrape: sketch block {scraped}")
         kinds = Counter(s["kind"] for s in steps)
         statuses = Counter()
         for s, r in zip(steps, replies):
@@ -1357,9 +1437,12 @@ def phase_door(torch, dev):
             f"p99 {v['rtt_p99_ms']:.3f} ms over {v['requests']} frames")
 
     # --- 5. dispatch under sync debug mode (no lane running) ---------------
+    # with MOVE_NS moving, so that its rows are masked out and the batches
+    # prepared again on the masked slots
     rng = np.random.default_rng(47)
     grouped_ids = zipf(rng, SIZES[-1])
     fused_ids = zipf(rng, FUSED_DEPTH * SIZES[-1])
+    svc.begin_move(MOVE_NS, "127.0.0.1:1", MOVE_EPOCH)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -1368,14 +1451,21 @@ def phase_door(torch, dev):
         admit = svc._param_step(param_flows[0], 1, [11, 12, 13])
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    for mat, n in ((grouped, SIZES[-1]), (fused, FUSED_DEPTH * SIZES[-1])):
-        if mat()[0].shape != (n,):
-            raise AssertionError("door: a checked dispatch lost rows")
+        svc.abort_move(MOVE_NS)
+    for mat, ids in ((grouped, grouped_ids), (fused, fused_ids)):
+        st = mat()[0]
+        masked = np.array([ns_of(int(f)) == MOVE_NS for f in ids])
+        if st.shape != ids.shape or not masked.any() or \
+                (st == MOVED_STATUS).tolist() != masked.tolist():
+            raise AssertionError("door: a checked dispatch lost rows or "
+                                 "masked the wrong ones")
     bool(admit.all())
-    out["sync_free"] = ["grouped 16384", "fused 4 x 16384",
+    out["sync_free"] = ["grouped 16384, MOVED-masked",
+                        "fused 4 x 16384, MOVED-masked",
                         "param step to its verdict read"]
-    log("door: grouped, fused (depth 4) and param dispatches make no call "
-        "that waits for the device (sync debug mode)")
+    log(f"door: grouped and fused (depth 4) dispatches with {MOVE_NS} "
+        f"moving (its rows masked and answered MOVED) and a param step make "
+        f"no call that waits for the device (sync debug mode)")
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"door phase: {out['phase_s']:.1f} s")
     return out
@@ -2008,6 +2098,542 @@ def ha_drill(dev, pipe, child, drill_flow: int, snap_dir: str) -> dict:
     return res
 
 
+# --- phase 11: namespace MOVE between two doors ------------------------------
+MOVE_EPOCH = 7  # the shard-map epoch of the first move
+MOVE_NS, ABORT_NS, LIVE_NS = "ns0", "ns2", "ns4"
+MOVE_ROUNDS = 4  # the destination's lockstep rounds on the moved namespace
+MOVE_PARAM_REQUESTS = 200  # on the moved param rules, before the move
+# the lossy move's ack timeout (the reference's test takes 0.5 s): the lost
+# frame costs one timeout. The committed moves keep the reference's 5 s
+# default; their COMMIT ack waits for the destination's import, which took
+# 0.53-0.95 s at 100k flows on the card's host
+MOVE_ABORT_ACK_S = 2.0
+LIVE_PULL = 1024
+LIVE_LEAD_S = 1.0  # closed-loop traffic before the live move begins
+LIVE_TAIL_S = 1.0  # and after it commits
+MOVED_STATUS = 10
+SALSA_ACQUIRE = 2000  # acquire multiplier of the SALSA stream: pairs merge
+
+
+def move_rules():
+    """Phase 9's rules with the param rules whose flow id is 0 mod ``NS``
+    in ``MOVE_NS`` (four of the 256), so that param state moves too."""
+    import dataclasses
+
+    flow, degrade, params = flow_rules()
+    params = [dataclasses.replace(p, namespace=MOVE_NS)
+              if p.flow_id % NS == 0 else p for p in params]
+    return flow, degrade, params
+
+
+def ns_of(fid: int) -> str:
+    return f"ns{fid % NS}"
+
+
+def docs_diff(a: dict, b: dict, skip=("wall_ms",)) -> list:
+    """The keys in which two export documents differ: rules by the rule
+    codec, arrays bitwise with the dtype."""
+    from sentinel_tpu_torch.engine.rules import (
+        encode_degrade_rule,
+        encode_rule,
+    )
+
+    bad = sorted(set(a) ^ set(b))
+    for key in set(a) & set(b):
+        if key in skip:
+            continue
+        x, y = a[key], b[key]
+        if key == "rules":
+            same = [encode_rule(r) for r in x] == [encode_rule(r) for r in y]
+        elif key == "degrade_rules":
+            same = ([encode_degrade_rule(r) for r in x]
+                    == [encode_degrade_rule(r) for r in y])
+        elif isinstance(x, np.ndarray):
+            same = x.dtype == y.dtype and np.array_equal(x, y)
+        else:
+            same = x == y
+        if not same:
+            bad.append(key)
+    return bad
+
+
+def over_admission(spans, admitted, thresholds, window_ms: int) -> int:
+    """The largest excess over a flow's window threshold of the tokens
+    admitted, summed over both doors, within any span shorter than
+    ``window_ms`` (the window less one bucket: such a span lies in one
+    window of either door). ``spans`` is ``[(sent, received)]`` per pull in
+    order, ``admitted`` ``[pulls, flows]`` the OK rows per flow."""
+    sent = np.array([s for s, _ in spans])
+    recv = np.array([r for _, r in spans])
+    cum = np.vstack([np.zeros((1, admitted.shape[1]), np.int64),
+                     np.cumsum(admitted, axis=0)])
+    worst = 0
+    for i in range(len(spans)):
+        j = int(np.searchsorted(recv, sent[i] + window_ms, side="left"))
+        if j <= i:
+            continue
+        excess = (cum[j] - cum[i]) - thresholds
+        worst = max(worst, int(excess.max()))
+    return worst
+
+
+def phase_move(torch, dev):
+    """Namespace MOVE between two port doors at phase 9's widths.
+
+    The source door serves phase 9's configuration (100k flows in
+    ``NS`` namespaces, a breaker on every 10th, 256 param rules, four of
+    them in ``MOVE_NS``); the destination door already serves the odd
+    namespaces (~50k flows) and the param rules outside ``MOVE_NS``; a
+    twin of the destination on the torch-ops cores imports every document
+    the destination imports, at the same manual clock.
+
+    1. Phase 9's lockstep (2 rounds) and ``MOVE_PARAM_REQUESTS`` param
+       requests on the moved rules feed the source; ``MoveCoordinator``
+       moves ``MOVE_NS`` at ``MOVE_EPOCH``. Then the source answers MOVED
+       with the epoch for every moved row of a grouped 16384-row and a fused
+       65536-row Zipf pull and counts none of them (its document is
+       bit-equal before and after); the destination's document equals the
+       source's last; ``MOVE_ROUNDS`` lockstep rounds of the moved
+       namespace's pulls, PARAM_FLOW frames on the moved param rules and a
+       1024-row report through the destination door equal the twin's, one
+       decide launch a device step and one count-min launch a frame.
+    2. A MOVE_STATE frame of a move of ``ABORT_NS`` is lost (chaos
+       ``frame_drop`` in a proxy between the doors): the move aborts, the
+       source's document is bit-equal, nothing is staged; a retry commits.
+    3. ``LIVE_NS`` moves under one client's closed loop of 1024-row Zipf
+       pulls on the system clock, its MOVED rows re-sent to the
+       destination: the tokens admitted on each of its flows, summed over
+       both doors within any span shorter than a window, stay within the
+       flow's count (over-admission 0).
+    4. SALSA with fat rows (``slim_width=0``), param rules only: a move of
+       ``MOVE_NS``'s param rules; the destination's verdicts equal its
+       twin's, its folded plane re-encodes to itself, and the SALSA kernel
+       launches once a request.
+    """
+    import torch_door_check as DK
+    import torch_kernel_check as DC
+    import torch_param_check as PC
+    import torch_repl_check as RC
+
+    from sentinel_tpu_torch import chaos
+    from sentinel_tpu_torch.cluster import protocol as P
+    from sentinel_tpu_torch.cluster.rebalance import (
+        MoveCoordinator,
+        decode_move_state_blob,
+        encode_move_state_blob,
+    )
+    from sentinel_tpu_torch.cluster.server_native import NativeTokenServer
+    from sentinel_tpu_torch.core import clock
+    from sentinel_tpu_torch.metrics.ha import ha_metrics
+    from sentinel_tpu_torch.ops import cms_cuda, salsa_cuda
+    from sentinel_tpu_torch.ops import decide_cuda as K
+    from sentinel_tpu_torch.sketch import salsa as SA
+
+    t_phase = time.perf_counter()
+    out = {}
+    flow, degrade, params = move_rules()
+    moved_params = [p.flow_id for p in params if p.namespace == MOVE_NS]
+    if len(moved_params) != 4:
+        raise AssertionError(f"move: {len(moved_params)} param rules in "
+                             f"{MOVE_NS}")
+    odd = [r for r in flow if (r.flow_id % NS) % 2]
+    dst_rules = (odd, [d for d in degrade if (d.flow_id % NS) % 2],
+                 [p for p in params if p.namespace != MOVE_NS])
+    zipf = DC.ZipfIds(F, alpha=1.1)
+    flow_ids = np.arange(F, dtype=np.int64)
+    mc = clock.ManualClock(int(time.time() * 1000) - 60_000)
+    prev = clock.set_clock(mc)
+    servers = []
+    reb0 = ha_metrics().snapshot()["rebalance"]
+
+    def moved_rows(ids, ns):
+        return np.array([ns_of(int(f)) == ns for f in ids])
+
+    try:
+        src_svc = ha_service(dev, (flow, degrade, params), conc=True)
+        dst_svc = ha_service(dev, dst_rules)
+        twin = ha_service(dev, dst_rules, twin=True)
+        src = NativeTokenServer(src_svc, host="127.0.0.1", port=0,
+                                idle_ttl_s=None)
+        dst = NativeTokenServer(dst_svc, host="127.0.0.1", port=0,
+                                idle_ttl_s=None)
+        servers += [src, dst]
+        src.start()
+        dst.start()
+        twin.warmup()
+        src_ep = f"127.0.0.1:{src.port}"
+        dst_ep = f"127.0.0.1:{dst.port}"
+        log(f"move: source {len(flow)} flows, destination {len(odd)} flows "
+            f"(the odd namespaces) and a torch-ops twin; doors up in "
+            f"{time.perf_counter() - t_phase:.1f} s")
+
+        # the destination's imports, timed, and each document for the twin
+        imports = []
+        dst_import = dst_svc.import_namespace_state
+
+        def timed_import(doc):
+            t0 = time.perf_counter()
+            dst_import(doc)
+            imports.append(((time.perf_counter() - t0) * 1e3, doc))
+
+        dst_svc.import_namespace_state = timed_import
+        commits = []
+        dst_commit = dst.move_target._commit
+
+        def timed_commit(*args):
+            t0 = time.perf_counter()
+            code = dst_commit(*args)
+            commits.append((time.perf_counter() - t0) * 1e3)
+            return code
+
+        dst.move_target._commit = timed_commit
+        exports = []
+        held = LockHeld(src_svc._lock)
+        src_export = src_svc.export_namespace_state
+
+        def timed_export(ns):
+            held.watch, held.ms = threading.get_ident(), 0.0
+            t0 = time.perf_counter()
+            doc = src_export(ns)
+            exports.append({"export_ms": (time.perf_counter() - t0) * 1e3,
+                            "lock_ms": held.ms})
+            return doc
+
+        def timed_move(coord, ns, epoch=None):
+            """One move, timed from the begin to the COMMIT ack; the source's
+            export is timed inside it."""
+            src_svc._lock = held
+            src_svc.export_namespace_state = timed_export
+            b0 = ha_metrics().snapshot()["rebalance"]["stateBytesTotal"]
+            try:
+                t0 = time.perf_counter()
+                ok = coord.move_namespace(ns, dst_ep, epoch=epoch)
+                ms = (time.perf_counter() - t0) * 1e3
+            finally:
+                src_svc._lock = held.lock
+                del src_svc.export_namespace_state
+            return ok, {"move_ms": ms, "state_bytes": ha_metrics().snapshot()[
+                "rebalance"]["stateBytesTotal"] - b0, **exports[-1]}
+
+        # --- 1. the source's traffic, then the move ---------------------
+        steps = DK.lockstep_plan(
+            np.random.default_rng(61), zipf, flow_ids, DOOR_PULLS,
+            [p.flow_id for p in params], door_lease_flows(),
+            DOOR_CONC_FLOWS, HA_ROUNDS, P.MAX_BATCH_PER_FRAME,
+            OUTCOME_ADVANCES_MS)
+        conn = DK.RawConn(P, src.port)
+        try:
+            conn.ping(1)
+            DK.run_lockstep(P, conn, steps, mc.advance)
+        finally:
+            conn.close()
+        specs = [s for s in PC.service_rule_specs(256, np.random.default_rng(
+            41)) if s.flow_id in moved_params]
+        for fid, acq, hashes in PC.service_stream(
+                specs, np.random.default_rng(62), MOVE_PARAM_REQUESTS):
+            src_svc.request_params_token(fid, acq, hashes)
+            mc.advance(1)
+        doc_src = src_svc.export_namespace_state(MOVE_NS)
+        coord = MoveCoordinator(src_svc, self_endpoint=src_ep)
+        ok, first = timed_move(coord, MOVE_NS, epoch=MOVE_EPOCH)
+        if not ok:
+            raise AssertionError(f"move: {MOVE_NS} did not commit: "
+                                 f"{coord.last_error}")
+        first.update(commit_ms=commits[-1], import_ms=imports[-1][0])
+        twin.import_namespace_state(imports[-1][1])
+        bad = (RC.flow_rows_diff(dst_svc, twin)
+               + RC.param_rows_diff(dst_svc, twin, "counts"))
+        if bad:
+            raise AssertionError(f"move: the twin's import differs: {bad}")
+        got = dst_svc.export_namespace_state(MOVE_NS)
+        bad = docs_diff(doc_src, got)
+        if bad:
+            raise AssertionError(f"move: the destination's document differs "
+                                 f"from the source's last in {bad}")
+        # both pulls at the export's clock: no bucket expires between the
+        # two documents compared below
+        rng = np.random.default_rng(63)
+        K.LAUNCHES.update(dict.fromkeys(K.LAUNCHES, 0))
+        moved_answers = 0
+        for n in (SIZES[-1], FUSED_DEPTH * SIZES[-1]):
+            ids = flow_ids[zipf(rng, n)]
+            st, rem, _w = src_svc.request_batch_arrays(ids)
+            m = moved_rows(ids, MOVE_NS)
+            if not (m.any() and (st[m] == MOVED_STATUS).all()
+                    and (rem[m] == MOVE_EPOCH).all()
+                    and not (st[~m] == MOVED_STATUS).any()):
+                raise AssertionError(f"move: a {n}-row pull's MOVED rows "
+                                     f"are not the moved namespace's")
+            moved_answers += int(m.sum())
+        if K.LAUNCHES["decide_rows"] != 1 + FUSED_DEPTH:
+            raise AssertionError(f"move: {K.LAUNCHES['decide_rows']} decide "
+                                 f"launches for {1 + FUSED_DEPTH} steps")
+        bad = docs_diff(doc_src, src_svc.export_namespace_state(MOVE_NS))
+        if bad:
+            raise AssertionError(f"move: masked rows changed the source's "
+                                 f"{bad}")
+        ns_ids = flow_ids[flow_ids % NS == 0]
+        ns_zipf = DC.ZipfIds(ns_ids.size, alpha=1.1)
+        steps = DK.lockstep_plan(
+            np.random.default_rng(64), ns_zipf, ns_ids, DOOR_PULLS,
+            moved_params, [], [], MOVE_ROUNDS, P.MAX_BATCH_PER_FRAME,
+            OUTCOME_ADVANCES_MS)
+        K.LAUNCHES.update(dict.fromkeys(K.LAUNCHES, 0))
+        cms_cuda.LAUNCHES.update(dict.fromkeys(cms_cuda.LAUNCHES, 0))
+        conn = DK.RawConn(P, dst.port)
+        try:
+            conn.ping(1)
+            _replies, counts = DK.run_lockstep(P, conn, steps, mc.advance,
+                                               twin=twin)
+        finally:
+            conn.close()
+        if (K.LAUNCHES["decide_rows"] != counts["device_steps"]
+                or cms_cuda.LAUNCHES["cms_decide_update"]
+                != counts["param_frames"]):
+            raise AssertionError(
+                f"move: destination launches {K.LAUNCHES['decide_rows']} / "
+                f"{cms_cuda.LAUNCHES['cms_decide_update']} for {counts}")
+        for name in ("outcome_stats", "breaker_stats"):
+            if getattr(dst_svc, name)() != getattr(twin, name)():
+                raise AssertionError(f"move: {name} differs from the twin")
+        out["move"] = dict(first, moved_rows=int(moved_answers),
+                           destination_lockstep=dict(
+                               counts, frames=len(steps),
+                               decide_launches=K.LAUNCHES["decide_rows"],
+                               param_launches=cms_cuda.LAUNCHES[
+                                   "cms_decide_update"]),
+                           flows=len(doc_src["flow_ids"]),
+                           param_rules=len(doc_src["param_fids"]))
+        log(f"move {MOVE_NS}: {len(doc_src['flow_ids'])} flows and "
+            f"{len(doc_src['param_fids'])} param rules committed in "
+            f"{first['move_ms']:.1f} ms (export {first['export_ms']:.1f} ms "
+            f"holding the lock {first['lock_ms']:.1f} ms; "
+            f"{first['state_bytes']} MOVE_STATE bytes; destination commit {first['commit_ms']:.1f} "
+            f"ms, import {first['import_ms']:.1f} ms); the source answered "
+            f"{moved_answers} rows MOVED with epoch {MOVE_EPOCH} through a "
+            f"grouped and a fused (depth {FUSED_DEPTH}) pull, counting none; "
+            f"the destination's document is the source's last; "
+            f"{len(steps)} lockstep frames through the destination equal "
+            f"the twin's ({counts}), one decide launch a device step, one "
+            f"count-min launch a PARAM_FLOW frame")
+
+        # --- 2. a lost MOVE_STATE frame aborts; a retry commits ----------
+        doc_abort = src_svc.export_namespace_state(ABORT_NS)
+        proxy = DK.FrameDropProxy(P, dst.port, P.MsgType.MOVE_STATE,
+                                  should=lambda: chaos.should("frame_drop"))
+        try:
+            lossy = MoveCoordinator(src_svc, self_endpoint=src_ep,
+                                    ack_timeout_s=MOVE_ABORT_ACK_S)
+            chaos.arm("frame_drop:n=1", seed=65)
+            try:
+                t0 = time.perf_counter()
+                aborted = lossy.move_namespace(
+                    ABORT_NS, f"127.0.0.1:{proxy.port}", epoch=MOVE_EPOCH + 1)
+                abort_ms = (time.perf_counter() - t0) * 1e3
+                dropped = chaos.fired().get("frame_drop", 0)
+            finally:
+                chaos.disarm()
+        finally:
+            proxy.close()
+        if aborted or dropped != 1 or proxy.dropped != 1:
+            raise AssertionError(f"move: the lossy move of {ABORT_NS} "
+                                 f"({aborted}, {dropped} dropped)")
+        wait_for(lambda: not dst.move_target.status()["staged"],
+                 "the destination's staging to empty", 10.0)
+        bad = docs_diff(doc_abort, src_svc.export_namespace_state(ABORT_NS))
+        if bad or dst_svc.current_rules(ABORT_NS) or \
+                src_svc.moving_namespaces().get(ABORT_NS):
+            raise AssertionError(f"move: the abort was not lossless: {bad}")
+        ok, retry = timed_move(coord, ABORT_NS, epoch=MOVE_EPOCH + 2)
+        if not ok:
+            raise AssertionError(f"move: the retry of {ABORT_NS} did not "
+                                 f"commit: {coord.last_error}")
+        retry.update(commit_ms=commits[-1], import_ms=imports[-1][0])
+        if docs_diff(doc_abort, dst_svc.export_namespace_state(ABORT_NS)):
+            raise AssertionError("move: the retry's document differs")
+        twin.import_namespace_state(imports[-1][1])
+        out["abort"] = dict(abort_ms=abort_ms, last_error=lossy.last_error,
+                            retry=retry)
+        log(f"move {ABORT_NS}: a MOVE_STATE frame lost between the doors "
+            f"aborted the move after {abort_ms:.1f} ms ({lossy.last_error}); "
+            f"the source's document bit-equal, nothing staged; the retry "
+            f"committed in {retry['move_ms']:.1f} ms (import "
+            f"{retry['import_ms']:.1f} ms)")
+
+        # --- 3. a live move under a closed loop on the system clock ------
+        clock.set_clock(prev)
+        live_ids = flow_ids[flow_ids % NS == 4]
+        thresholds = np.array([src_svc._rule_of[int(f)].count
+                               for f in live_ids], np.int64)
+        col_of = np.full(F, -1, np.int64)
+        col_of[live_ids] = np.arange(live_ids.size)
+        spans, admitted = [], []
+        mover, result = None, {}
+
+        blocked = [0]
+
+        def count_ok(row, ids, st):
+            cols = col_of[ids[st == 0]]
+            np.add.at(row, cols[cols >= 0], 1)
+            blocked[0] += int((col_of[ids[st == 1]] >= 0).sum())
+
+        def live():
+            result["ok"], result["move"] = timed_move(coord, LIVE_NS,
+                                                      epoch=MOVE_EPOCH + 3)
+
+        rng = np.random.default_rng(66)
+        a = DK.RawConn(P, src.port)
+        b = DK.RawConn(P, dst.port)
+        live_moved = 0
+        try:
+            a.ping(1)
+            b.ping(1)
+            xid = 0
+            t_begin = time.monotonic()
+            t_stop = None
+            while t_stop is None or time.monotonic() < t_stop:
+                if mover is None and time.monotonic() - t_begin > LIVE_LEAD_S:
+                    mover = threading.Thread(target=live)
+                    mover.start()
+                if mover is not None and t_stop is None \
+                        and not mover.is_alive():
+                    t_stop = time.monotonic() + LIVE_TAIL_S
+                ids = flow_ids[zipf(rng, LIVE_PULL)]
+                xid += 1
+                sent = time.time() * 1e3
+                a.send(P.encode_batch_request(xid, ids))
+                st = P.decode_batch_response(a.recv())[1]
+                row = np.zeros(live_ids.size, np.int64)
+                m = st == MOVED_STATUS
+                if m.any():
+                    live_moved += int(m.sum())
+                    xid += 1
+                    b.send(P.encode_batch_request(xid, ids[m]))
+                    st2 = P.decode_batch_response(b.recv())[1]
+                    count_ok(row, ids[m], st2)
+                count_ok(row, ids, st)
+                spans.append((sent, time.time() * 1e3))
+                admitted.append(row)
+        finally:
+            a.close()
+            b.close()
+            if mover is not None:
+                mover.join(timeout=120)
+        if not result.get("ok"):
+            raise AssertionError(f"move: the live move of {LIVE_NS} did not "
+                                 f"commit: {coord.last_error}")
+        live_move = result["move"]
+        live_move.update(commit_ms=commits[-1], import_ms=imports[-1][0])
+        window = window_less_bucket_ms(src_svc)
+        over = over_admission(spans, np.array(admitted), thresholds, window)
+        total = int(np.array(admitted).sum())
+        if over != 0 or not live_moved:
+            raise AssertionError(f"move: live over-admission {over} "
+                                 f"({live_moved} rows MOVED)")
+        out["live"] = dict(live_move, pulls=len(spans), moved_rows=live_moved,
+                           admitted=total, blocked=blocked[0],
+                           over_admission=over, span_ms=window)
+        log(f"move {LIVE_NS} live: {len(spans)} pulls of {LIVE_PULL} rows; "
+            f"the move committed in {live_move['move_ms']:.1f} ms (export "
+            f"{live_move['export_ms']:.1f} ms, lock "
+            f"{live_move['lock_ms']:.1f} ms, "
+            f"{live_move['state_bytes']} B, import "
+            f"{live_move['import_ms']:.1f} ms); {live_moved} rows answered "
+            f"MOVED and re-sent; {total} tokens admitted and {blocked[0]} "
+            f"rows blocked on its flows over both doors; over-admission "
+            f"{over} (spans under {window} ms)")
+    finally:
+        clock.set_clock(prev)
+        for s in servers:
+            s.stop()
+
+    # --- 4. SALSA, fat rows: a param namespace moves ----------------------
+    mc = clock.ManualClock(int(time.time() * 1000) - 30_000)
+    prev = clock.set_clock(mc)
+    salsa = {}
+    try:
+        import dataclasses
+
+        # two of the moved rules unbounded, so that SALSA pairs saturate and
+        # merge on the source; the other two keep their thresholds
+        unbounded = set(moved_params[:2])
+        src_p = [dataclasses.replace(p, count=1e9, item_thresholds=None)
+                 if p.flow_id in unbounded else p for p in params]
+        dst_p = [p for p in params if p.namespace != MOVE_NS]
+        s_src = ha_service(dev, ([], [], src_p), sketch="salsa", slim_width=0)
+        s_dst = ha_service(dev, ([], [], dst_p), sketch="salsa", slim_width=0)
+        s_twin = ha_service(dev, ([], [], dst_p), twin=True, sketch="salsa",
+                            slim_width=0)
+        door = NativeTokenServer(s_dst, host="127.0.0.1", port=0,
+                                 idle_ttl_s=None)
+        door.start()
+        try:
+            stream = PC.service_stream(specs, np.random.default_rng(67),
+                                       2 * MOVE_PARAM_REQUESTS)
+            half = len(stream) // 2
+            for fid, acq, hashes in stream[:half]:
+                s_src.request_params_token(fid, acq * SALSA_ACQUIRE, hashes)
+                mc.advance(1)
+            merges = int(s_src._param_state.merges.sum())
+            ok = MoveCoordinator(s_src, self_endpoint="src:1").move_namespace(
+                MOVE_NS, f"127.0.0.1:{door.port}", epoch=MOVE_EPOCH)
+        finally:
+            door.stop()
+        if not ok:
+            raise AssertionError("move: the SALSA move did not commit")
+        doc = s_src.export_namespace_state(MOVE_NS)
+        s_twin.import_namespace_state(decode_move_state_blob(
+            encode_move_state_blob(doc)))
+        counts = s_dst._param_state.counts
+        dec, merged = SA.decode_plane(counts)
+        again, newly = SA.encode_plane(dec, merged)
+        if not torch.equal(again, counts) or bool(newly.any()):
+            raise AssertionError("move: the folded SALSA plane does not "
+                                 "re-encode to itself")
+        salsa_cuda.LAUNCHES.update(dict.fromkeys(salsa_cuda.LAUNCHES, 0))
+        verdicts = {}
+        for fid, acq, hashes in stream[half:]:
+            a_ = s_dst.request_params_token(fid, acq * SALSA_ACQUIRE, hashes)
+            b_ = s_twin.request_params_token(fid, acq * SALSA_ACQUIRE, hashes)
+            if a_ != b_:
+                raise AssertionError(f"move: SALSA verdicts differ: {a_} "
+                                     f"!= {b_}")
+            verdicts[int(a_.status)] = verdicts.get(int(a_.status), 0) + 1
+            mc.advance(1)
+        launches = salsa_cuda.LAUNCHES["salsa_decide_update"]
+        bad = RC.param_rows_diff(s_dst, s_twin, "counts")
+        if bad:
+            raise AssertionError(f"move: SALSA rows differ from the twin's: "
+                                 f"{bad}")
+        if launches != len(stream) - half:
+            raise AssertionError(f"move: {launches} SALSA launches for "
+                                 f"{len(stream) - half} requests")
+        salsa = dict(merges_before=merges, requests=len(stream) - half,
+                     launches=launches, verdicts=verdicts)
+        log(f"move SALSA (fat rows): {MOVE_NS}'s param rules moved with "
+            f"{merges} merges on the source; the folded plane re-encodes "
+            f"to itself; {launches} SALSA launches for as many requests, "
+            f"verdicts {verdicts} equal to the twin's")
+    finally:
+        clock.set_clock(prev)
+    out["salsa"] = salsa
+    reb = ha_metrics().snapshot()["rebalance"]
+    out["rebalance"] = {
+        "events": {k: v - reb0["events"].get(k, 0)
+                   for k, v in reb["events"].items()},
+        "redirects": reb["redirectsTotal"] - reb0["redirectsTotal"]}
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"move phase: {out['phase_s']:.1f} s; rebalance events "
+        f"{out['rebalance']}")
+    return out
+
+
+def window_less_bucket_ms(svc) -> int:
+    """A service's window less one bucket, in ms."""
+    c = svc.config
+    return c.bucket_ms * (c.n_buckets - 1)
+
+
 def phase_prefix(torch, dev, cfg, table, state):
     """The segment-prefix plan and apply kernels vs their plain versions on
     every key shape, their times, then an ungrouped decide step with
@@ -2130,6 +2756,10 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
+    # the service's stat logs go beside the build, inside the checkout (the
+    # variable reaches the spawned children too)
+    stat_dir = os.path.join(HERE, "sentinel_tpu_torch", "build", "stat_logs")
+    os.environ["CSP_SENTINEL_LOG_DIR"] = stat_dir
     try:
         import sentinel_tpu_torch  # noqa: F401
     except ImportError as exc:
@@ -2178,6 +2808,7 @@ def main() -> int:
     outcome, profiled_reports = phase_outcome(torch, dev)
     door = phase_door(torch, dev)
     ha = phase_ha(torch, dev)
+    move = phase_move(torch, dev)
     service[SIZES[-1]].update(profiled_pulls())
     for sketch, kernels_a_call in profiled_params().items():
         param_service[sketch]["profiled"] = kernels_a_call
@@ -2202,6 +2833,8 @@ def main() -> int:
         "launches_outcome_phase": outcome["launches"],
         "launches_door_phase": door["lockstep"]["decide_launches"],
         "launches_ha_phase": ha["promoted"]["decide_launches"],
+        "launches_move_phase": move["move"]["destination_lockstep"][
+            "decide_launches"],
     }]
     for sketch, name, line in (("cms", "cms_decide_update", 49),
                                ("salsa", "salsa_decide_update", 37)):
@@ -2225,6 +2858,9 @@ def main() -> int:
             "launches_ha_phase": (ha["promoted"]["param_launches"]
                                   if sketch == "cms" else
                                   ha["salsa_fat"]["launches"]),
+            "launches_move_phase": (
+                move["move"]["destination_lockstep"]["param_launches"]
+                if sketch == "cms" else move["salsa"]["launches"]),
             "parity_steps": param_parity[sketch][1],
             "by_n": {str(n): v for n, v in param_timing[sketch].items()},
         })
@@ -2251,6 +2887,7 @@ def main() -> int:
                     "outcome": outcome,
                     "door": door,
                     "ha": ha,
+                    "move": move,
                     "gpu": ident}))
     log(ident)
     log(json.dumps({"kernels": kernels}))

@@ -44,9 +44,13 @@ been silent for ``promote_after_ms``.
 The service is probed for no hook: it must have every method the door
 calls (:class:`DefaultTokenService` does). A feature of a slice not yet
 ported is refused at construction with ``NotImplementedError``:
-``metrics_port`` (the Prometheus exporter). A rev-4 MOVE frame closes its
-connection with a logged warning, counted as the ``refused`` rebalance
-event.
+``metrics_port`` (the Prometheus exporter).
+
+Live namespace moves, as in the reference door: rev-4 MOVE frames route to
+the server's :class:`~sentinel_tpu_torch.cluster.rebalance.MoveTarget`, one
+session per connection, which stages a moved-in namespace and imports it at
+MOVE_COMMIT; a connection that closes, and ``stop()``, discard what its
+session staged.
 """
 
 from __future__ import annotations
@@ -65,7 +69,6 @@ from sentinel_tpu_torch.cluster.connection import ConnectionManager
 from sentinel_tpu_torch.cluster.token_service import TokenService
 from sentinel_tpu_torch.core.log import record_log
 from sentinel_tpu_torch.engine.decide import TokenStatus
-from sentinel_tpu_torch.metrics.ha import ha_metrics
 from sentinel_tpu_torch.metrics.profiler import ProfilerHook
 from sentinel_tpu_torch.metrics.server import server_metrics
 from sentinel_tpu_torch.overload import AdmissionController, BrownoutLevel
@@ -219,6 +222,12 @@ class NativeTokenServer:
         self.applier = None
         self.replicator = None
         self._repl_sessions: dict = {}  # (fd, gen) → ReplSession
+        # rev-4 namespace-move channel (cluster.rebalance): one MoveSession
+        # per inbound connection, the same lifecycle as _repl_sessions
+        from sentinel_tpu_torch.cluster.rebalance import MoveTarget
+
+        self.move_target = MoveTarget(service)
+        self._move_sessions: dict = {}  # (fd, gen) → MoveSession
         # rev-7 push plane (cluster.push): sinks registered per (fd, gen)
         # at CTRL_OPEN hand encoded push frames to door.send — the same
         # non-blocking C++ send queue the control replies use, which also
@@ -505,6 +514,9 @@ class NativeTokenServer:
             self.applier.stop()
             self.applier = None
         self._repl_sessions.clear()
+        for sess in self._move_sessions.values():
+            sess.closed()  # discard any staged (uncommitted) move state
+        self._move_sessions.clear()
         if self._snapshots is not None:
             self._snapshots.stop(final_save=True)
             self._snapshots = None
@@ -1159,6 +1171,11 @@ class NativeTokenServer:
             if address:
                 self.connections.remove_address(address)
             self._repl_sessions.pop((fd, gen), None)
+            move_sess = self._move_sessions.pop((fd, gen), None)
+            if move_sess is not None:
+                # a source that dies mid-move never sent MOVE_COMMIT:
+                # discarding its staged state leaves it the sole owner
+                move_sess.closed()
             return
         # kind == CTRL_FRAME: a non-data-plane request
         with self._addr_lock:
@@ -1191,14 +1208,31 @@ class NativeTokenServer:
                 self._repl_sessions.pop((fd, gen), None)
                 door.close_conn(fd, gen)
             return
-        # rev-4 namespace-move frames: no MoveTarget in this package yet
-        # (ROADMAP item 5), so the same treatment plus a counter
+        # rev-4 namespace-move frames: the same control-lane treatment,
+        # routed to the MoveTarget's per-connection session
         if len(payload) >= 5 and P.peek_type(payload) in P.MOVE_TYPES:
-            record_log.warning(
-                "move frame refused (MOVE not ported); closing %s", address,
-            )
-            ha_metrics().count_rebalance("refused")
-            door.close_conn(fd, gen)
+            sess = self._move_sessions.get((fd, gen))
+            if sess is None:
+                sess = self.move_target.connection()
+                self._move_sessions[(fd, gen)] = sess
+                # a move channel is no token client: the import's
+                # rule-epoch push would reach the source before the
+                # COMMIT ack, and a coordinator that reads it as a failed
+                # step aborts a move this side has committed
+                self.push_hub.detach((fd, gen))
+            try:
+                sess.handle(
+                    payload,
+                    lambda b, fd=fd, gen=gen, door=door: door.send(
+                        fd, gen, b
+                    ),
+                )
+            except ValueError:
+                record_log.warning("torn move stream; closing %s",
+                                   address)
+                self._move_sessions.pop((fd, gen), None)
+                sess.closed()
+                door.close_conn(fd, gen)
             return
         # rev-5 lease frames ride the control lane too (one per TTL per hot
         # flow — never on the per-decision path, which is the whole point)

@@ -27,19 +27,27 @@ the other's capture); and warm-standby replication (``replication_enable``,
 since the last tick, keyed by flow_id, namespace and param rule, the
 reference's delta document key for key).
 
+Live namespace moves (``cluster.rebalance``): ``begin_move`` masks a
+namespace's rows out of every device step (they answer MOVED with the
+shard-map epoch and count nothing), ``abort_move`` restores it losslessly,
+and ``export_namespace_state`` / ``import_namespace_state`` carry its rules
+and live-window sums to another service, which folds them into its own
+current bucket.
+
 The service also feeds what a front door serves beside the verdicts: the
 rev-7 push plane (``attach_push_hub``: lease recalls, rule epochs, breaker
-flips), ``namespace_index`` for the door's per-tenant shed attribution, and
-per served batch the server metrics' verdict counters
+flips), ``namespace_index`` for the door's per-tenant shed attribution, per
+served batch the server metrics' verdict counters
 (``ServerMetrics.record_verdict_batch``, which feeds the timeline and the
-SLO plane) and the flight recorder's device hops.
+SLO plane), the cluster stat log's verdict classes and the flight
+recorder's device hops; per report the stat log, the timeline's and the SLO
+plane's completions; per breaker scan the transition counters and, on a
+trip to OPEN, the blackbox dump; and the ``ServerMetrics`` providers
+(sketch, lease, outcome, breaker).
 
-Later slices: namespace export/import and MOVE (the MOVING set is always
-empty here, and no MOVE import marks fat param rows dirty), the hierarchy
-tier (``hierarchy`` stays None, so the door refuses hierarchy frames as the
-reference does on a server with no coordinator), and the host sinks of
-completion reports and breaker edges. Where the reference feeds those, the code below leaves a
-comment marked ``seam``.
+A later slice: the hierarchy tier (``hierarchy`` stays None, so the door
+refuses hierarchy frames as the reference does on a server with no
+coordinator, and no hierarchy provider is registered).
 """
 
 from __future__ import annotations
@@ -48,6 +56,7 @@ import dataclasses
 import itertools
 import threading
 import time
+import weakref
 from collections import OrderedDict
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -80,6 +89,7 @@ from sentinel_tpu_torch.engine.param import (
     hash_indices,
     make_param_state,
     param_decide,
+    resolve_param_impl,
 )
 from sentinel_tpu_torch.engine.outcome import outcome_step_donating
 from sentinel_tpu_torch.engine.rules import (
@@ -100,10 +110,20 @@ from sentinel_tpu_torch.engine.state import (
     flow_spec,
     make_state,
 )
+from sentinel_tpu_torch.metrics.ha import ha_metrics
 from sentinel_tpu_torch.metrics.server import server_metrics
+from sentinel_tpu_torch.metrics.stat_logger import log_cluster
+from sentinel_tpu_torch.metrics.timeline import timeline as _timeline
+from sentinel_tpu_torch.sketch import (
+    decoded_counts_np,
+    fold_param_sums,
+    sketch_stats as _sketch_stats,
+)
 from sentinel_tpu_torch.stats import window as W
 from sentinel_tpu_torch.stats.window import NEVER, rebase
+from sentinel_tpu_torch.trace import blackbox as _blackbox
 from sentinel_tpu_torch.trace import ring as _TR
+from sentinel_tpu_torch.trace.slo import slo_plane as _slo_plane
 
 _SM = server_metrics()
 
@@ -354,8 +374,14 @@ class DefaultTokenService(TokenService):
         self._breaker_scan_ts = 0.0
         # namespaces served explicitly, unioned with those of loaded rules
         self.namespace_set: set = set()
-        # MOVE's namespace → (endpoint, epoch); a later slice fills it
+        # live rebalance (cluster.rebalance): namespace → (destination
+        # "host:port", shard-map epoch). While a namespace is here its rows
+        # are masked out of every device step and answer MOVED.
+        # _moving_snap is the dispatch path's view, (mask bool[max_namespaces],
+        # epoch int32[max_namespaces]) rebuilt under self._lock on every
+        # begin / abort / end and rule reload, or None when nothing moves
         self._moving: Dict[str, Tuple[str, int]] = {}
+        self._moving_snap: Optional[Tuple[np.ndarray, np.ndarray]] = None
         # concurrent (semaphore) mode, host-side by design
         self.concurrency = ConcurrencyManager()
         self._expiry: Optional[ExpiryTask] = None
@@ -402,6 +428,22 @@ class DefaultTokenService(TokenService):
         self._push_hubs: List[object] = []
         # the hierarchy tier's coordinator (a later slice): none here
         self.hierarchy = None
+        # the process-wide ServerMetrics pulls these blocks through a
+        # weakref, so a dead service pins no memory; the most recently
+        # constructed service is the one scraped
+        _self = weakref.ref(self)
+        _SM.register_sketch_provider(
+            lambda: (lambda s: s.sketch_stats() if s is not None else {})(
+                _self()))
+        _SM.register_lease_provider(
+            lambda: (lambda s: s.lease_stats() if s is not None else {})(
+                _self()))
+        _SM.register_outcome_provider(
+            lambda: (lambda s: s.outcome_stats() if s is not None else {})(
+                _self()))
+        _SM.register_breaker_provider(
+            lambda: (lambda s: s.breaker_stats() if s is not None else {})(
+                _self()))
 
     @staticmethod
     def _prep_batch(cfg, slots, acq, pr):
@@ -495,6 +537,9 @@ class DefaultTokenService(TokenService):
                     self._index.ns_of[r.namespace]
                 )
             self._ns_snapshot = (tuple(ns_names), slot_ns)
+            # a reload can seat rules of a namespace that is mid-move: its
+            # new slots must be masked too
+            self._rebuild_moving_snap()
             # leases pin flow_id → slot: re-resolve them, and revoke those
             # whose rule is gone (their LEASED charge expires with the
             # window, the conservative direction)
@@ -809,12 +854,27 @@ class DefaultTokenService(TokenService):
             lookup_snap, cfg, bucket, flow_ids, acq, pr
         )
         step = self._step_fn(bucket, uniform)
+        slots_ns = slots  # pre-mask slots: the verdicts' namespaces
+        moved_mask = moved_epochs = None
         # -- device step: the only serialized section --
         with self._lock:
             if self._lookup is not lookup_snap:
                 # rules reloaded between prep and step: redo the prep
                 slots = self._lookup_from(self._lookup, flow_ids)
+                slots_ns = slots
                 order, batch = self._prep_batch(cfg, slots, acq, pr)
+            mv = self._moving_snap
+            if mv is not None:
+                # rows of a MOVING namespace leave the device batch (they
+                # count nothing) and answer MOVED; under the lock, so a
+                # begin_move orders strictly against every step. The batch
+                # is prepared again on the masked slots: the decide kernel
+                # needs a slot's in-range rows contiguous
+                moved_mask, moved_epochs = self._moving_mask_for(slots, mv)
+                if moved_mask is not None:
+                    slots = np.where(moved_mask, np.int32(-1),
+                                     slots).astype(np.int32)
+                    order, batch = self._prep_batch(cfg, slots, acq, pr)
             now = self._engine_now()
             self._state, verdicts = step(
                 self._state, self._table, batch, now
@@ -839,8 +899,10 @@ class DefaultTokenService(TokenService):
                 status[order] = status_sorted
                 remaining[order] = remaining_sorted
                 wait[order] = wait_sorted
-            self._record_served(status, wait, slots, t_dispatch)
-            self._scan_if_degraded(status)
+            if moved_mask is not None:
+                self._overlay_moved(status, remaining, wait, moved_mask,
+                                    moved_epochs)
+            self._record_served(status, wait, slots_ns, t_dispatch)
             return status, remaining, wait
 
         return _materialize
@@ -902,20 +964,23 @@ class DefaultTokenService(TokenService):
         step = self._fused_step_fn(depth, uniform)
         with self._lock:
             if self._lookup is not lookup_snap:
-                preps = []
-                for f in range(depth):
-                    sl = slice(f * cap, (f + 1) * cap)
-                    slots_f = self._lookup_from(self._lookup, flow_ids[sl])
-                    if bool((slots_f[:-1] <= slots_f[1:]).all()):
-                        order_f = None
-                        make_batch_into(block, f, slots_f, acq[sl], pr[sl])
-                    else:
-                        order_f = np.argsort(slots_f, kind="stable")
-                        make_batch_into(
-                            block, f, slots_f[order_f], acq[sl][order_f],
-                            pr[sl][order_f],
-                        )
-                    preps.append((slots_f, order_f, None))
+                preps = self._stage_frames(
+                    block, depth, cap,
+                    self._lookup_from(self._lookup, flow_ids), acq, pr)
+            span_ns = np.concatenate([p[0] for p in preps])
+            moved_span = moved_epochs_span = None
+            mv = self._moving_snap
+            if mv is not None:
+                # a MOVING namespace's rows leave every staged frame, which
+                # is prepared again on its masked slots (see
+                # dispatch_batch_arrays)
+                moved_span, moved_epochs_span = self._moving_mask_for(
+                    span_ns, mv)
+                if moved_span is not None:
+                    preps = self._stage_frames(
+                        block, depth, cap,
+                        np.where(moved_span, np.int32(-1),
+                                 span_ns).astype(np.int32), acq, pr)
             now = self._engine_now()
             self._state, verdicts = step(
                 self._state, self._table, block, now
@@ -947,19 +1012,58 @@ class DefaultTokenService(TokenService):
                     status[dst][order_f] = status_all[f]
                     remaining[dst][order_f] = remaining_all[f]
                     wait[dst][order_f] = wait_all[f]
-            self._record_served(
-                status, wait, np.concatenate([p[0] for p in preps]),
-                t_dispatch,
-            )
-            self._scan_if_degraded(status)
+            if moved_span is not None:
+                self._overlay_moved(status, remaining, wait, moved_span,
+                                    moved_epochs_span)
+            self._record_served(status, wait, span_ns, t_dispatch)
             return status, remaining, wait
 
         return _materialize
 
+    @staticmethod
+    def _stage_frames(block, depth, cap, span, acq, pr):
+        """Prepare the ``depth`` frames of the slot vector ``span`` into
+        ``block``'s rows, bypassing the prep cache; returns each frame's
+        ``(slots, order, None)``."""
+        preps = []
+        for f in range(depth):
+            sl = slice(f * cap, (f + 1) * cap)
+            slots_f = span[sl]
+            if bool((slots_f[:-1] <= slots_f[1:]).all()):
+                order_f = None
+                make_batch_into(block, f, slots_f, acq[sl], pr[sl])
+            else:
+                order_f = np.argsort(slots_f, kind="stable")
+                make_batch_into(block, f, slots_f[order_f],
+                                acq[sl][order_f], pr[sl][order_f])
+            preps.append((slots_f, order_f, None))
+        return preps
+
+    @staticmethod
+    def _overlay_moved(status, remaining, wait, mask, epochs) -> None:
+        """The MOVED answer of the rows a move masked (the device saw them
+        as no-rule): the shard-map epoch rides ``remaining``."""
+        status[mask] = np.int8(int(TokenStatus.MOVED))
+        remaining[mask] = epochs[mask]
+        wait[mask] = 0
+        ha_metrics().count_rebalance_redirects(int(mask.sum()))
+
+    # the cluster stat log's verdict classes (ClusterServerStatLogUtil)
+    _STAT_CLASSES = (
+        ("pass", int(TokenStatus.OK)),
+        ("block", int(TokenStatus.BLOCKED)),
+        ("occupied", int(TokenStatus.SHOULD_WAIT)),
+        ("tooManyRequest", int(TokenStatus.TOO_MANY_REQUEST)),
+        ("degraded", int(TokenStatus.DEGRADED)),
+    )
+
     def _record_served(self, status, wait, slots, t_dispatch) -> None:
-        """Per-namespace verdict counters (``sentinel_server_verdicts_total``,
-        and through them the timeline and the SLO plane) for one served
-        batch; ``slots`` is request order."""
+        """The host sinks of one served batch: the per-namespace verdict
+        counters (``sentinel_server_verdicts_total``, and through them the
+        timeline and the SLO plane; ``slots`` is request order and
+        pre-mask, so MOVED verdicts land on their namespace), the flight
+        recorder, one stat-log line per verdict class, and, when the batch
+        answered DEGRADED, a breaker scan (rate-limited)."""
         _SM.record_verdict_batch(
             status, *self._ns_attribution(slots),
             latency_ms=(time.monotonic() - t_dispatch) * 1e3,
@@ -967,11 +1071,14 @@ class DefaultTokenService(TokenService):
         )
         if _TR.ARMED:  # flight recorder: device step materialized
             _TR.record(_TR.DEVICE_OUT, aux=status.shape[0])
-
-    def _scan_if_degraded(self, status: np.ndarray) -> None:
-        """A materialized pull that answered DEGRADED saw breaker activity:
-        fold the device's transitions into the host mirror (rate-limited)."""
-        if (status == int(TokenStatus.DEGRADED)).any():
+        n_degraded = 0
+        for event, code in self._STAT_CLASSES:
+            hits = int((status == code).sum())
+            if hits:
+                log_cluster(event, count=hits)
+                if event == "degraded":
+                    n_degraded = hits
+        if n_degraded:
             self._breaker_scan()
 
     def _mark_dirty_locked(self, slots: np.ndarray) -> None:
@@ -996,11 +1103,19 @@ class DefaultTokenService(TokenService):
         status, remaining, wait = self.request_batch_arrays(
             flow_ids, acquires, prios
         )
-        return [
-            TokenResult(TokenStatus(int(status[i])), int(remaining[i]),
-                        int(wait[i]))
-            for i in range(n)
-        ]
+        moved = int(TokenStatus.MOVED)
+        out = []
+        for i in range(n):
+            st = int(status[i])
+            endpoint = ""
+            if st == moved:
+                # the redirect names the new owner, so in-process callers
+                # and the single-request wire path need no second lookup
+                red = self.moved_redirect(int(flow_ids[i]))
+                endpoint = red[0] if red else ""
+            out.append(TokenResult(TokenStatus(st), int(remaining[i]),
+                                   int(wait[i]), endpoint=endpoint))
+        return out
 
     # -- hot-param path -------------------------------------------------------
     def _dev(self, a: np.ndarray) -> torch.Tensor:
@@ -1337,6 +1452,311 @@ class DefaultTokenService(TokenService):
                 lease.tokens for lease in self._leases.values()
             )
             return out
+
+    # -- live rebalance (cluster.rebalance) ----------------------------------
+    def _rebuild_moving_snap(self) -> None:
+        """Rebuild the dispatch path's MOVING view from ``self._moving``.
+        Caller holds ``self._lock``: a step that took the lock before a
+        ``begin_move`` decides before the move, and its tokens are in the
+        exported sums."""
+        if not self._moving:
+            self._moving_snap = None
+            return
+        n = self.config.max_namespaces
+        mask = np.zeros(n, bool)
+        epochs = np.zeros(n, np.int32)
+        for ns_name, (_dest, epoch) in self._moving.items():
+            row = self._index.ns_of.get(ns_name)
+            if row is not None and row < n:
+                mask[row] = True
+                epochs[row] = np.int32(epoch)
+        self._moving_snap = (mask, epochs) if mask.any() else None
+
+    def _moving_mask_for(self, slots: np.ndarray, mv):
+        """Request-order mask of the rows whose rule's namespace is MOVING,
+        with each row's shard-map epoch, or ``(None, None)`` when the batch
+        touches no moving namespace. Caller holds ``self._lock``."""
+        mask_arr, epoch_arr = mv
+        _names, slot_ns = self._ns_snapshot
+        ns_idx = np.where(
+            slots >= 0, slot_ns[np.maximum(slots, 0)], np.int32(-1)
+        )
+        m = (ns_idx >= 0) & mask_arr[np.maximum(ns_idx, 0)]
+        if not m.any():
+            return None, None
+        return m, epoch_arr[np.maximum(ns_idx, 0)]
+
+    def begin_move(self, namespace: str, endpoint: str, epoch: int) -> None:
+        """Mark ``namespace`` MOVING to ``endpoint`` under shard-map
+        ``epoch``: from the next device step its flows count no tokens and
+        answer MOVED. A re-begin to the same destination is allowed (a
+        coordinator's retry); another destination while moving raises.
+
+        The namespace's leases are recalled: their registry entries drop
+        (renewals answer MOVED) while their LEASED charge stays in the
+        window, so the exported sums carry it to the new owner."""
+        with self._lock:
+            cur = self._moving.get(namespace)
+            if cur is not None and cur[0] != endpoint:
+                raise ValueError(
+                    f"namespace {namespace!r} already moving to {cur[0]}"
+                )
+            self._moving[namespace] = (str(endpoint), int(epoch))
+            self._rebuild_moving_snap()
+            flows = set(self._rules_by_ns.get(namespace, ()))
+            dead = []
+            if flows and self._leases:
+                dead = [lease for lease in self._leases.values()
+                        if lease.flow_id in flows]
+                for lease in dead:
+                    del self._leases[lease.lease_id]
+                self._lease_stats["revoked"] += len(dead)
+        # rev-7 push: recalled leases cut over within one round trip
+        for lease in dead:
+            self._emit_push(
+                "push_lease_revoke", lease.lease_id, lease.flow_id,
+                lease.tokens,
+            )
+        if _TR.ARMED:  # flight recorder: MOVE begin (phase 0)
+            _TR.record(_TR.MOVE, aux=0)
+
+    def abort_move(self, namespace: str) -> None:
+        """Serve ``namespace`` again. Lossless: the masked rows never
+        touched the counters."""
+        with self._lock:
+            self._moving.pop(namespace, None)
+            self._rebuild_moving_snap()
+        if _TR.ARMED:  # flight recorder: MOVE abort (phase 2)
+            _TR.record(_TR.MOVE, aux=2)
+        _blackbox.maybe_dump(f"move_abort:{namespace}")
+
+    def end_redirect(self, namespace: str) -> None:
+        """Drop the post-commit MOVED tombstone and the namespace's flow
+        and degrade rules (the destination owns them now)."""
+        with self._lock:
+            self._moving.pop(namespace, None)
+            self._rebuild_moving_snap()
+        if any(d.namespace == namespace
+               for d in self._degrade_rules_src.values()):
+            self.load_namespace_degrade_rules(namespace, [])
+        self.load_namespace_rules(namespace, [])
+
+    def moving_namespaces(self) -> Dict[str, Tuple[str, int]]:
+        """namespace → (destination endpoint, shard-map epoch)."""
+        with self._lock:
+            return dict(self._moving)
+
+    def moved_redirect(self, flow_id: int) -> Optional[Tuple[str, int]]:
+        """``(destination endpoint, shard-map epoch)`` when ``flow_id``'s
+        namespace is moving or moved away, else None."""
+        if not self._moving:
+            return None
+        with self._lock:
+            slot = int(self._lookup_from(
+                self._lookup, np.asarray([flow_id], np.int64)
+            )[0])
+            if slot < 0:
+                return None
+            names, slot_ns = self._ns_snapshot
+            row = int(slot_ns[slot])
+            if row < 0 or row >= len(names):
+                return None
+            return self._moving.get(names[row])
+
+    def export_namespace_state(self, namespace: str) -> Dict[str, object]:
+        """One namespace for a live move, in the reference's document: its
+        flow, param and degrade rules, and per moved flow the live-window
+        sums of the flow, occupy and outcome planes, the namespace guard
+        row's sum, the shaper and breaker columns (clocks relative to the
+        export's engine now; NEVER stays NEVER), and per param rule the
+        decoded cell sums of its live buckets (``[depth, cells]`` int64,
+        whatever the sketch's encoding). Sums are ring- and epoch-free, so
+        the destination folds them into its own current bucket.
+
+        Under the lock the rows are gathered on the device (fresh tensors
+        that no later step writes); they reach the host in one copy after
+        the lock drops."""
+        fetch = _HostCopy()
+        with self._rules_mutex, self._lock:
+            rules = list(self._rules_by_ns.get(namespace, {}).values())
+            param_rules = [r for r in self._param_rules_src.values()
+                           if r.namespace == namespace]
+            degrade_rules = [d for d in self._degrade_rules_src.values()
+                             if d.namespace == namespace]
+            now = self._engine_now()
+            spec = flow_spec(self.config)
+            # breaker-only flows (a degrade rule and no flow rule) own a
+            # slot and breaker state too: walk the union
+            exported = {r.flow_id for r in rules}
+            flow_ids, slots = [], []
+            for r in list(rules) + [d for d in degrade_rules
+                                    if d.flow_id not in exported]:
+                slot = self._index.slot_of.get(r.flow_id)
+                if slot is not None:
+                    flow_ids.append(int(r.flow_id))
+                    slots.append(slot)
+            st = self._state
+            sl = self._dev(np.asarray(slots, np.int64))
+
+            def sums(ws, rows):
+                part = W.WindowState(ws.starts, ws.counts.index_select(0,
+                                                                       rows))
+                return fetch.add(W.window_sum_all(spec, part, now))
+
+            row = self._index.ns_of.get(namespace)
+            ns_rows = self._dev(np.asarray([] if row is None else [row],
+                                           np.int64))
+            got = {
+                "flow_sums": sums(st.flow, sl),
+                "occupy_sums": sums(st.occupy, sl),
+                "outcome_sums": sums(st.outcome, sl),
+                "ns_sum": sums(st.ns, ns_rows),
+                "lpt": fetch.add(st.shaping.lpt.index_select(0, sl)),
+                "wtok": fetch.add(st.shaping.warm_tokens.index_select(0, sl)),
+                "wfill": fetch.add(st.shaping.warm_filled.index_select(0,
+                                                                       sl)),
+                "bstate": fetch.add(st.breaker.state.index_select(0, sl)),
+                "bopened": fetch.add(st.breaker.opened_ms.index_select(0,
+                                                                       sl)),
+                "bprobe": fetch.add(st.breaker.probe_ms.index_select(0, sl)),
+            }
+            pfids, pslots = [], []
+            for r in param_rules:
+                entry = self._param_rules.get(r.flow_id)
+                if entry is not None:
+                    pfids.append(int(r.flow_id))
+                    pslots.append(entry[0])
+            if pfids:
+                pst = self._param_state
+                got["pcounts"] = fetch.add(pst.counts.index_select(
+                    0, self._dev(np.asarray(pslots, np.int64))))
+                got["pstarts"] = fetch.add(pst.starts.clone())
+            wall = int(_clock.now_ms())
+        fetch.run()
+        got = {k: fetch.get(v) for k, v in got.items()}
+
+        def rel(v: np.ndarray) -> np.ndarray:
+            v = v.astype(np.int64)
+            return np.where(v == NEVER, NEVER, v - now).astype(np.int64)
+
+        ns_sum = got["ns_sum"]
+        doc: Dict[str, object] = {
+            "namespace": namespace,
+            "wall_ms": wall,
+            "interval_ms": int(spec.interval_ms),
+            "rules": rules,
+            "param_rules": param_rules,
+            "flow_ids": flow_ids,
+            "flow_sums": got["flow_sums"],
+            "occupy_sums": got["occupy_sums"],
+            "outcome_sums": got["outcome_sums"],
+            "ns_sum": (np.array(ns_sum[0]) if row is not None
+                       else np.zeros(ns_sum.shape[1], ns_sum.dtype)),
+            "shaping_lpt_rel": rel(got["lpt"]),
+            "shaping_warm_tokens": got["wtok"].astype(np.float32),
+            "shaping_warm_filled_rel": rel(got["wfill"]),
+            "degrade_rules": degrade_rules,
+            "breaker_state": got["bstate"].astype(np.int8),
+            "breaker_opened_rel": rel(got["bopened"]),
+            "breaker_probe_rel": rel(got["bprobe"]),
+            "param_fids": pfids,
+        }
+        pc = self.param_config
+        if pfids:
+            # the sketch is linear over decoded values, so summing the live
+            # buckets keeps every estimate the destination will read
+            dec = decoded_counts_np(pc, got["pcounts"])  # [R, B, D, cells]
+            age = now - got["pstarts"]
+            live = (age >= 0) & (age < pc.interval_ms)
+            doc["param_sums"] = np.stack([
+                dec[i, live].sum(axis=0).astype(np.int64)
+                for i in range(len(pfids))])
+        else:
+            doc["param_sums"] = np.zeros((0, pc.depth, pc.cell_width),
+                                         np.int64)
+        return doc
+
+    def import_namespace_state(self, doc: Dict[str, object]) -> None:
+        """Install an :meth:`export_namespace_state` document (of either
+        package): load the namespace's rules through the normal reload
+        path (fresh local slots), then fold every shipped sum into the
+        current ring bucket (:meth:`_fold_into_current`, and
+        ``sketch.fold_param_sums`` for the param plane) and re-anchor the
+        shaper and breaker clocks to this engine's now. Token-lossless: the
+        first window sum over an imported row equals the source's last.
+        The folded param rows are marked for a one-time fat shipment
+        (``param_fat``), since the slim twin never saw them."""
+        namespace = str(doc["namespace"])
+        rules = [interop.port_rule(r, ClusterFlowRule) for r in doc["rules"]]
+        param_rules = [interop.port_rule(r, ClusterParamFlowRule)
+                       for r in doc["param_rules"]]
+        degrade_rules = [interop.port_rule(r, DegradeRule)
+                         for r in doc.get("degrade_rules", ())]
+        with self._rules_mutex:
+            self.load_namespace_rules(namespace, rules)
+            if degrade_rules:
+                # rules first (slots and br_* columns), then the state
+                self.load_namespace_degrade_rules(namespace, degrade_rules)
+            if param_rules:
+                self.load_namespace_param_rules(namespace, param_rules)
+            with self._lock:
+                now = self._engine_now()
+                spec = flow_spec(self.config)
+                st = self._state
+                flow_ids = [int(f) for f in doc.get("flow_ids", [])]
+                slots = (np.asarray([self._index.slot_of[f]
+                                     for f in flow_ids], np.int64)
+                         if flow_ids else None)
+                self._fold_into_current(st.flow, spec, now, slots,
+                                        doc["flow_sums"])
+                self._fold_into_current(st.occupy, spec, now, slots,
+                                        doc["occupy_sums"])
+                # a document without outcome sums starts the moved flows'
+                # completion window empty
+                out_sums = doc.get("outcome_sums")
+                if out_sums is not None and slots is not None:
+                    self._fold_into_current(st.outcome, spec, now, slots,
+                                            out_sums)
+                row = self._index.ns_of.get(namespace)
+                self._fold_into_current(
+                    st.ns, spec, now, None if row is None else [row],
+                    None if row is None else np.asarray(doc["ns_sum"])[None],
+                )
+
+                def anchor(rel) -> np.ndarray:
+                    rel = np.asarray(rel, np.int64)
+                    return np.where(rel == NEVER, NEVER,
+                                    np.clip(now + rel, NEVER, 2 ** 30))
+
+                def put(col: torch.Tensor, vals) -> None:
+                    col.index_copy_(0, self._dev(slots), self._dev(
+                        np.asarray(vals)).to(col.dtype))
+
+                lpt_rel = doc.get("shaping_lpt_rel")
+                if lpt_rel is not None and flow_ids:
+                    put(st.shaping.lpt, anchor(lpt_rel))
+                    put(st.shaping.warm_tokens, doc["shaping_warm_tokens"])
+                    put(st.shaping.warm_filled,
+                        anchor(doc["shaping_warm_filled_rel"]))
+                br_state = doc.get("breaker_state")
+                if br_state is not None and flow_ids:
+                    put(st.breaker.state, br_state)
+                    put(st.breaker.opened_ms,
+                        anchor(doc["breaker_opened_rel"]))
+                    put(st.breaker.probe_ms,
+                        anchor(doc["breaker_probe_rel"]))
+                    # the next scan diffs against CLOSED, so a moved-in
+                    # OPEN breaker surfaces as a closed→open edge here
+                    self._breaker_prev = None
+                pfids = [int(f) for f in doc.get("param_fids", [])]
+                if pfids:
+                    prow = np.asarray([self._param_rules[f][0]
+                                       for f in pfids], np.int64)
+                    fold_param_sums(self.param_config, self._param_state,
+                                    now, prow, doc["param_sums"])
+                    if self._dirty is not None:
+                        self._dirty["param"].update(prow.tolist())
+                        self._dirty["param_fat"].update(prow.tolist())
 
     # -- state snapshot / restore (HA) ----------------------------------------
     def export_state(self) -> Dict[str, object]:
@@ -1759,11 +2179,21 @@ class DefaultTokenService(TokenService):
                 ws.starts.copy_(new)
 
     # -- reads of the flow and outcome planes ---------------------------------
+    def sketch_stats(self) -> Dict[str, object]:
+        """The param sketch's observability block: variant, fat and slim
+        bytes, SALSA merge counters, and the param core this service runs
+        (``impl``). Pulled by ``ServerMetrics`` on every scrape."""
+        with self._lock:
+            stats = _sketch_stats(self.param_config, self._param_state)
+        stats["impl"] = resolve_param_impl(self.param_config.impl,
+                                           self.device)
+        return stats
+
     def metrics_snapshot(self) -> Dict[int, Dict[str, float]]:
         """Per-flow windowed rates from the flow and outcome planes (two
-        device reads). The reference also stamps ``moved_epoch`` on flows of
-        a namespace that is moving; MOVE is not ported, so that never
-        applies here."""
+        device reads). A flow of a moving or moved-away namespace carries
+        ``moved_epoch`` (the shard-map epoch), so an aggregator can drop
+        this server's frozen copy while the destination counts it."""
         with self._lock:
             now = self._engine_now()
             spec = flow_spec(self.config)
@@ -1791,6 +2221,11 @@ class DefaultTokenService(TokenService):
                     ),
                     "rt_avg_ms": rt_sum / n_complete if n_complete else 0.0,
                 }
+                rule = self._rule_of.get(fid)
+                mv = (self._moving.get(rule.namespace)
+                      if rule is not None else None)
+                if mv is not None:
+                    out[fid]["moved_epoch"] = float(mv[1])
             return out
 
     # -- completion reports (OUTCOME_REPORT) ----------------------------------
@@ -1804,7 +2239,11 @@ class DefaultTokenService(TokenService):
         Dropped rows are counted by reason: ``non_finite`` (a non-finite
         float RT), ``negative`` (RT < 0), ``too_large`` (RT above
         ``OUTCOME_MAX_RT_MS``), ``unknown_flow`` (no rule slot). ``xid`` is
-        the frame's id, for the trace plane (a later slice)."""
+        the frame's id, for the flight recorder.
+
+        The accepted rows feed the host planes after the lock: the stat
+        log's ``outcome_reported`` line, and per namespace the timeline's
+        completion row and the SLO plane's completions (no device read)."""
         flow_ids = np.asarray(flow_ids, np.int64).reshape(-1)
         k = int(flow_ids.shape[0])
         rt_in = np.asarray(rt_ms).reshape(-1)
@@ -1871,9 +2310,27 @@ class DefaultTokenService(TokenService):
                         self._dirty["breaker"].update(
                             touched & self._breaker_slots
                         )
-        # seam: the per-namespace fan-out of the accepted rows (timeline,
-        # SLO burn, flight recorder, stat log) goes here, by
-        # self._ns_snapshot
+            ns_names, slot_ns = self._ns_snapshot
+        if _TR.ARMED:  # flight recorder: report ingested
+            _TR.record(_TR.OUTCOME, xid=xid, aux=n_ok)
+        if not n_ok:
+            return 0
+        log_cluster("outcome_reported", count=n_ok)
+        ns_idx = slot_ns[slots[valid]]
+        rt_ok = rt[valid]
+        exc_ok = exc_in[valid]
+        tl = _timeline()
+        plane = _slo_plane()
+        for ni in np.unique(ns_idx):
+            if ni < 0:
+                continue
+            name = ns_names[int(ni)]
+            m = ns_idx == ni
+            rts = rt_ok[m]
+            n_exc_ns = int(exc_ok[m].sum())
+            tl.record(name, 0, 0, 0, 0, n_complete=int(m.sum()),
+                      n_exception=n_exc_ns, rt_sum_ms=float(rts.sum()))
+            plane.record_completion(name, rts, n_exception=n_exc_ns)
         return n_ok
 
     def outcome_stats(self) -> Dict[str, object]:
@@ -1937,16 +2394,19 @@ class DefaultTokenService(TokenService):
         self, force: bool = False
     ) -> Dict[Tuple[int, int], int]:
         """Diff the device's breaker state column (one ``[F]`` int8 read)
-        against the host mirror and return the observed edges,
-        ``{(from, to): count}``. At most once a second unless ``force``
-        (then ``{}`` between scans); transitions happen on the device, so a
-        breaker that opens and recovers between two scans shows its net
-        edge. The first scan after a reload or restore diffs against
-        CLOSED."""
+        against the host mirror, fold the observed edges into the
+        transition counters (``ServerMetrics.count_breaker_transition``),
+        push every flip, dump the blackbox on a trip to OPEN
+        (rate-limited), and return the edges, ``{(from, to): count}``. At
+        most once a second unless ``force`` (then ``{}`` between scans);
+        transitions happen on the device, so a breaker that opens and
+        recovers between two scans shows its net edge. The first scan after
+        a reload or restore diffs against CLOSED."""
         if not self._has_breakers:
             return {}
         edges: Dict[Tuple[int, int], int] = {}
         flips: List[Tuple[int, int]] = []  # (flow_id, new state) per edge
+        tripped: List[int] = []  # flow ids that went to OPEN
         with self._lock:
             now_s = time.monotonic()
             if not force and now_s - self._breaker_scan_ts < 1.0:
@@ -1965,6 +2425,15 @@ class DefaultTokenService(TokenService):
                     key = (int(prev[s]), int(st[s]))
                     edges[key] = edges.get(key, 0) + 1
                     flips.append((int(rev[s]), int(st[s])))
+                    if int(st[s]) == 1:  # OPEN
+                        tripped.append(int(rev[s]))
+        names = self._BR_STATE_NAMES
+        for (frm, to), count in edges.items():
+            _SM.count_breaker_transition(
+                names[frm] if frm < 3 else str(frm),
+                names[to] if to < 3 else str(to),
+                count,
+            )
         # rev-7 push: every edge goes to the clients; OPEN parks their local
         # admission for the rule's recovery timeout, CLOSED and HALF_OPEN
         # lift it
@@ -1973,8 +2442,9 @@ class DefaultTokenService(TokenService):
             if to == 1:  # OPEN
                 retry = int(self._degrade_rules_src[fid].recovery_timeout_ms)
             self._emit_push("push_breaker_flip", fid, to, retry)
-        # seam: the edges feed the transition counters and, on a trip to
-        # OPEN, the blackbox dump here
+        if tripped:
+            _blackbox.maybe_dump(
+                "breaker_open:" + ",".join(str(f) for f in tripped))
         return edges
 
     def breaker_stats(self) -> Dict[str, object]:

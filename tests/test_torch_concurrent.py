@@ -22,6 +22,7 @@ from sentinel_tpu.engine import EngineConfig as JConfig  # noqa: E402
 from sentinel_tpu.engine.rules import ThresholdMode as JTM  # noqa: E402
 
 from sentinel_tpu_torch import interop  # noqa: E402
+import torch_parity  # noqa: E402,F401  (stat logs to a temp dir)
 from sentinel_tpu_torch.cluster.concurrent import (  # noqa: E402
     ConcurrentFlowRule,
 )

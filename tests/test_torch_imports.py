@@ -1,8 +1,11 @@
 """The port imports neither JAX nor the JAX package: a fresh interpreter
 imports every ``sentinel_tpu_torch`` module, then ``jax`` and
 ``sentinel_tpu`` must be absent from ``sys.modules``; also after the native
-door's library is built and loaded, and a door has served a frame; and after
-a standby door has applied a REPL snapshot and been promoted."""
+door's library is built and loaded, and a door has served a frame; after
+a standby door has applied a REPL snapshot and been promoted; and after a
+door has served a namespace move (MOVE_BEGIN, MOVE_STATE, MOVE_COMMIT from
+the port's ``MoveCoordinator``). The subprocesses write their stat logs into
+the test's temporary directory."""
 
 import os
 import pkgutil
@@ -27,7 +30,11 @@ def _modules():
     return names
 
 
-def test_port_modules_import_without_jax():
+def _env(tmp_path):
+    return {**os.environ, "CSP_SENTINEL_LOG_DIR": str(tmp_path)}
+
+
+def test_port_modules_import_without_jax(tmp_path):
     names = _modules()
     for mod in ("ops.decide_cuda", "ops.cms_cuda", "ops.salsa_cuda",
                 "ops.prefix_cuda", "engine.param", "engine.outcome",
@@ -38,7 +45,8 @@ def test_port_modules_import_without_jax():
                 "metrics.timeline", "metrics.server", "metrics.profiler",
                 "trace.ring", "trace.spans", "trace.slo", "trace.blackbox",
                 "overload", "overload.admission", "native.build",
-                "native.lib", "ha", "ha.snapshot", "ha.replication"):
+                "native.lib", "ha", "ha.snapshot", "ha.replication",
+                "core.property", "metrics.stat_logger", "cluster.rebalance"):
         assert f"sentinel_tpu_torch.{mod}" in names, mod
     code = (
         "import importlib, sys\n"
@@ -54,7 +62,7 @@ def test_port_modules_import_without_jax():
     # -I: no user site or PYTHON* variables, so nothing preloads JAX
     out = subprocess.run(
         [sys.executable, "-I", "-c", code], capture_output=True, text=True,
-        timeout=120, cwd=REPO,
+        timeout=120, cwd=REPO, env=_env(tmp_path),
     )
     assert out.returncode == 0, out.stderr[-2000:]
 
@@ -92,12 +100,13 @@ assert not bad, bad
 """
 
 
-def test_native_door_serves_without_jax():
+def test_native_door_serves_without_jax(tmp_path):
     if not (shutil.which("g++") or shutil.which("c++")):
         pytest.skip("no C++ compiler on PATH to build the native door")
     out = subprocess.run(
         [sys.executable, "-I", "-c", _SERVE_ONE_FRAME.format(repo=REPO)],
         capture_output=True, text=True, timeout=300, cwd=REPO,
+        env=_env(tmp_path),
     )
     assert out.returncode == 0, out.stderr[-2000:]
 
@@ -152,12 +161,63 @@ assert not bad, bad
 """
 
 
-def test_standby_door_applies_and_promotes_without_jax():
+def test_standby_door_applies_and_promotes_without_jax(tmp_path):
     if not (shutil.which("g++") or shutil.which("c++")):
         pytest.skip("no C++ compiler on PATH to build the native door")
     out = subprocess.run(
         [sys.executable, "-I", "-c", _STANDBY_PROMOTES.format(repo=REPO)],
         capture_output=True, text=True, timeout=300, cwd=REPO,
+        env=_env(tmp_path),
+    )
+    assert out.returncode == 0, out.stderr[-2000:]
+
+
+_SERVES_A_MOVE = """
+import socket, sys
+sys.path.insert(0, {repo!r})
+import numpy as np
+from sentinel_tpu_torch.cluster import protocol as P
+from sentinel_tpu_torch.cluster.rebalance import MoveCoordinator
+from sentinel_tpu_torch.cluster.server_native import NativeTokenServer
+from sentinel_tpu_torch.cluster.token_service import DefaultTokenService
+from sentinel_tpu_torch.engine import ClusterFlowRule, EngineConfig
+cfg = EngineConfig(max_flows=8, max_namespaces=2, batch_size=64)
+src = DefaultTokenService(cfg, device="cpu")
+src.load_rules([ClusterFlowRule(1, 3.0, namespace="m")])
+src.request_batch_arrays(np.full(2, 1, np.int64))
+dst = DefaultTokenService(cfg, device="cpu")
+server = NativeTokenServer(dst, port=0, idle_ttl_s=None)
+server.start()
+try:
+    s = socket.create_connection(("127.0.0.1", server.port), timeout=30)
+    s.sendall(P.encode_move_ctrl(5, P.MsgType.MOVE_BEGIN, 1, "x", "peer"))
+    xid, code, _gen, _seq = P.decode_repl_ack(P.FrameReader().feed(
+        s.recv(4096))[0])
+    assert (xid, code) == (5, P.ReplAck.OK), code
+    s.close()
+    coord = MoveCoordinator(src, self_endpoint="src:1")
+    assert coord.move_namespace("m", "127.0.0.1:%d" % server.port,
+                                epoch=2), coord.last_error
+    assert src.request_batch_arrays(np.full(1, 1, np.int64))[0].tolist() \
+        == [10]
+    # the flow's window came along: one more pass, then blocks
+    assert dst.request_batch_arrays(np.full(2, 1, np.int64))[0].tolist() \
+        == [0, 1]
+finally:
+    server.stop()
+bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
+             or m == "sentinel_tpu" or m.startswith("sentinel_tpu."))
+assert not bad, bad
+"""
+
+
+def test_door_serves_a_move_without_jax(tmp_path):
+    if not (shutil.which("g++") or shutil.which("c++")):
+        pytest.skip("no C++ compiler on PATH to build the native door")
+    out = subprocess.run(
+        [sys.executable, "-I", "-c", _SERVES_A_MOVE.format(repo=REPO)],
+        capture_output=True, text=True, timeout=300, cwd=REPO,
+        env=_env(tmp_path),
     )
     assert out.returncode == 0, out.stderr[-2000:]
 
@@ -175,6 +235,7 @@ def _port_sources():
     yield os.path.join(REPO, "tests", "torch_param_check.py")
     yield os.path.join(REPO, "tests", "torch_outcome_check.py")
     yield os.path.join(REPO, "tests", "torch_door_check.py")
+    yield os.path.join(REPO, "tests", "torch_repl_check.py")
 
 
 def test_port_sources_never_name_jax():

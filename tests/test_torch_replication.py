@@ -56,6 +56,9 @@ from sentinel_tpu_torch.cluster import protocol as P  # noqa: E402
 from sentinel_tpu_torch.cluster.server_native import (  # noqa: E402
     NativeTokenServer,
 )
+from sentinel_tpu_torch.cluster.token_service import (  # noqa: E402
+    DefaultTokenService,
+)
 from sentinel_tpu_torch.ha import replication as TR  # noqa: E402
 from sentinel_tpu_torch.metrics.server import (  # noqa: E402
     reset_server_metrics_for_tests as t_reset_metrics,
@@ -311,6 +314,21 @@ def test_slim_delta_bytes_are_4x_under_fat():
     twin's delta blob at least 4x under the fat rows' blob."""
     sizes = param_delta_bytes("cpu")
     assert sizes["ratio"] >= 4.0, sizes
+
+
+def test_slim_delta_bytes_do_not_depend_on_host_speed(monkeypatch):
+    """The gate's bytes on a slow host: 40 ms added to every request (on
+    the system clock the window rolled mid-stream and the ratio fell from
+    7.8 to 4.66) give the same byte counts as an unslowed run."""
+    fast = param_delta_bytes("cpu")
+    served = DefaultTokenService.request_params_token
+
+    def slow(self, *args, **kwargs):
+        time.sleep(0.040)
+        return served(self, *args, **kwargs)
+
+    monkeypatch.setattr(DefaultTokenService, "request_params_token", slow)
+    assert param_delta_bytes("cpu") == fast
 
 
 def test_exported_rows_are_copies(clocks):

@@ -14,9 +14,11 @@ serving a CPU ``DefaultTokenService``, against the JAX package's door.
 - The refusals: ``metrics_port`` raises (``snapshot_dir`` /
   ``SENTINEL_SNAPSHOT_DIR``, ``standby_of`` and ``replicate_to`` are
   accepted since the HA slice; ``tests/test_torch_replication.py`` drives
-  them), MOVE frames and REPL frames on a server that is not a standby
-  close their connection, a hierarchy frame gets NOT_LEASABLE, a failed
-  native build raises.
+  them), a REPL frame on a server that is not a standby and a torn MOVE
+  chunk stream close their connection (a MOVE_BEGIN is acked: the door
+  routes MOVE frames to its ``MoveTarget``, ``tests/test_torch_rebalance.py``
+  drives whole moves), a hierarchy frame gets NOT_LEASABLE, a failed native
+  build raises.
 
 Door tests skip only when no C++ compiler is on ``PATH``.
 """
@@ -59,6 +61,7 @@ from sentinel_tpu.metrics.server import (  # noqa: E402
 )
 
 import torch_door_check as DK  # noqa: E402
+import torch_parity  # noqa: E402,F401  (stat logs to a temp dir)
 from torch_kernel_check import ZipfIds  # noqa: E402
 from sentinel_tpu_torch.cluster import protocol as P  # noqa: E402
 from sentinel_tpu_torch.cluster.concurrent import (  # noqa: E402
@@ -82,7 +85,6 @@ from sentinel_tpu_torch.engine import (  # noqa: E402
 )
 from sentinel_tpu_torch.engine.decide import TokenStatus  # noqa: E402
 from sentinel_tpu_torch.engine.param import ParamConfig  # noqa: E402
-from sentinel_tpu_torch.metrics.ha import ha_metrics  # noqa: E402
 from sentinel_tpu_torch.metrics.server import (  # noqa: E402
     reset_server_metrics_for_tests as t_reset_metrics,
     server_metrics,
@@ -625,20 +627,39 @@ def test_snapshot_dir_from_the_environment_is_refused(monkeypatch):
 
 
 def test_move_and_repl_frames_close_their_connection(port_server):
+    """A MOVE_BEGIN is answered with a REPL_ACK (the door has a
+    ``MoveTarget``), and the claim it staged dies with its connection; a
+    torn MOVE_STATE chunk stream and a REPL frame on a server that is not a
+    standby close their connection."""
     server, svc = port_server
-    before = ha_metrics().snapshot()["rebalance"]["events"].get("refused", 0)
-    for frame in (P.encode_move_ctrl(5, P.MsgType.MOVE_BEGIN, 1, "ns1",
-                                     "peer"),
-                  P.encode_repl_hello(6, 1, 0, 0, "primary")):
+    conn = DK.RawConn(P, server.port)
+    try:
+        conn.ping(1)
+        conn.send(P.encode_move_ctrl(5, P.MsgType.MOVE_BEGIN, 1, "ns1",
+                                     "peer"))
+        xid, code, _gen, _seq = P.decode_repl_ack(conn.recv())
+        assert (xid, code) == (5, P.ReplAck.OK)
+        assert [s["namespace"] for s in
+                server.move_target.status()["staged"]] == ["ns1"]
+    finally:
+        conn.close()
+    deadline = time.monotonic() + 5.0
+    while server.move_target.status()["staged"]:
+        assert time.monotonic() < deadline, "staged claim outlived its conn"
+        time.sleep(0.01)
+    chunks = P.encode_repl_blob(7, P.MsgType.MOVE_STATE, 1, 1,
+                                bytes(200_000))
+    for frames in ([chunks[0], chunks[2]],
+                   [P.encode_repl_hello(6, 1, 0, 0, "primary")]):
         conn = DK.RawConn(P, server.port)
         try:
             conn.ping(1)
-            conn.send(frame)
-            assert conn.closed_by_peer(), P.peek_type(frame[2:])
+            for frame in frames:
+                conn.send(frame)
+            assert conn.closed_by_peer(), P.peek_type(frames[-1][2:])
         finally:
             conn.close()
-    after = ha_metrics().snapshot()["rebalance"]["events"]["refused"]
-    assert after == before + 1
+    assert not svc.moving_namespaces()
     # the door keeps serving
     conn = DK.RawConn(P, server.port)
     try:

@@ -215,3 +215,85 @@ def test_reference_cores_differ_on_out_of_range_rows():
                                   np.asarray(s_p.counts))
     changed = np.argwhere(np.asarray(s_x.counts) != counts)
     assert set(changed[:, 0]) == {0, 2}  # only the in-range rows' slots
+
+
+def _fold_state(rng, cfg, sketch_name, now, stale):
+    """A live param state (numpy leaves) whose current bucket is current,
+    or stale (a bucket a whole window old)."""
+    st = {k: np.asarray(v) for k, v in interop.param_state_to_numpy(
+        JP.make_param_state(JP.ParamConfig(**cfg._asdict()))).items()}
+    shape = st["counts"].shape
+    st["counts"] = (_plane(rng, shape) if sketch_name == "salsa"
+                    else rng.integers(0, 1000, shape).astype(np.int32))
+    cur = (now // cfg.bucket_ms) % cfg.n_buckets
+    aligned = now - now % cfg.bucket_ms
+    st["starts"] = np.array([aligned - cfg.bucket_ms] * cfg.n_buckets,
+                            np.int32)
+    st["starts"][cur] = aligned - (cfg.interval_ms if stale else 0)
+    st["slim"] = rng.integers(0, 60, st["slim"].shape).astype(np.int32)
+    st["slim_auth"] = np.ones(cfg.n_buckets, bool)
+    st["merges"] = rng.integers(0, 5, shape[0]).astype(np.int32)
+    return st
+
+
+@pytest.mark.parametrize("stale", [False, True])
+@pytest.mark.parametrize("sketch_name", ["cms", "salsa"])
+def test_fold_param_sums_matches_reference(sketch_name, stale):
+    """The MOVE import's fold of decoded window sums into the current
+    bucket: every leaf equal to the reference's, a stale bucket rotated
+    first (fat and slim columns zeroed, authority dropped), SALSA adds in
+    decoded space with merges on saturation counted. A folded SALSA plane
+    equals its own re-encode: the precondition of the touched-pairs-only
+    kernel (beside ``test_encode_is_identity_on_untouched_pairs``)."""
+    rng = np.random.default_rng(31 + stale)
+    tcfg = TP.ParamConfig(max_param_rules=6, width=64, sketch=sketch_name)
+    jcfg = JP.ParamConfig(**tcfg._asdict())
+    now = 41_730
+    st = _fold_state(rng, tcfg, sketch_name, now, stale)
+    j_state = JP.ParamState(**{k: jnp.asarray(v) for k, v in st.items()})
+    t_state = interop.param_state_from_numpy(st, "cpu")
+    rows = np.array([4, 1, 2], np.int64)
+    sums = rng.integers(0, 3 * salsa.SAT, (3, 2, tcfg.cell_width))
+    sums[rng.random(sums.shape) < 0.6] = 0
+    sums[0, 0, :8] = salsa.MERGE_CEIL // 3  # past the merged ceiling
+    j_out = j_sketch.fold_param_sums(jcfg, j_state, now, rows, sums)
+    t_out = sketch.fold_param_sums(tcfg, t_state, now, rows, sums)
+    assert t_out is t_state  # in place
+    want = interop.param_state_to_numpy(j_out)
+    got = interop.param_state_to_numpy(t_state)
+    for key in want:
+        assert_arrays_equal(want[key], got[key], key)
+    cur = (now // tcfg.bucket_ms) % tcfg.n_buckets
+    assert bool(got["slim_auth"][cur]) is not stale
+    if sketch_name == "salsa":
+        assert (got["merges"] > st["merges"]).any()
+        dec, merged = salsa.decode_plane(t_state.counts)
+        again, newly = salsa.encode_plane(dec, merged)
+        assert torch.equal(again, t_state.counts)
+        assert not bool(newly.any())
+    # no rows: only the rotation
+    t2 = interop.param_state_from_numpy(st, "cpu")
+    j2 = j_sketch.fold_param_sums(jcfg, JP.ParamState(
+        **{k: jnp.asarray(v) for k, v in st.items()}), now, [], None)
+    sketch.fold_param_sums(tcfg, t2, now, [], None)
+    for key, v in interop.param_state_to_numpy(j2).items():
+        assert_arrays_equal(v, interop.param_state_to_numpy(t2)[key], key)
+
+
+@pytest.mark.parametrize("sketch_name", ["cms", "salsa"])
+@pytest.mark.parametrize("slim_width", [32, 0])
+def test_decoded_counts_and_stats_match_reference(sketch_name, slim_width):
+    rng = np.random.default_rng(5)
+    tcfg = TP.ParamConfig(max_param_rules=6, width=64, sketch=sketch_name,
+                          slim_width=slim_width)
+    jcfg = JP.ParamConfig(**tcfg._asdict())
+    st = _fold_state(rng, tcfg, sketch_name, 10_000, False)
+    j_state = JP.ParamState(**{k: jnp.asarray(v) for k, v in st.items()})
+    t_state = interop.param_state_from_numpy(st, "cpu")
+    want = j_sketch.decoded_counts_np(jcfg, j_state.counts)
+    assert_arrays_equal(want, sketch.decoded_counts_np(tcfg, t_state.counts),
+                        "decoded from a tensor")
+    assert_arrays_equal(want, sketch.decoded_counts_np(tcfg, st["counts"]),
+                        "decoded from an array")
+    assert sketch.sketch_stats(tcfg, t_state) == j_sketch.sketch_stats(
+        jcfg, j_state)

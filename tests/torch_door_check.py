@@ -24,6 +24,10 @@ bytes) and, where it holds replies against a service, the service.
 - :func:`closed_loop`: clients in worker processes, each on its own
   connection, sending pulls back to back; served verdicts/s and client
   RTTs. :func:`param_rtt`: PARAM_FLOW frames one at a time.
+- :class:`FrameDropProxy`: a TCP proxy in front of a door that drops the
+  first client frame of one message type (the native door applies the
+  chaos ``frame_drop`` point to data-plane pulls only, so a lost control
+  frame is made here).
 """
 
 from __future__ import annotations
@@ -31,6 +35,8 @@ from __future__ import annotations
 import collections
 import importlib
 import socket
+import struct
+import threading
 import time
 from typing import Callable, Dict, List, Optional, Sequence
 
@@ -500,3 +506,91 @@ def param_rtt(P, port: int, param_flows: Sequence[int], requests: int,
     a = np.array(lat) * 1e3
     return {"requests": requests, "rtt_p50_ms": float(np.percentile(a, 50)),
             "rtt_p99_ms": float(np.percentile(a, 99))}
+
+
+class FrameDropProxy:
+    """Listens on ``port`` (127.0.0.1, a free port) and forwards every
+    connection to ``target_port``; in the client-to-server direction a
+    length-prefixed frame whose type is ``drop_type`` is dropped when
+    ``should()`` says so (a chaos point's ``should``), or, without
+    ``should``, the first such frame of the proxy's life. ``dropped``
+    counts the drops. ``close()`` stops the listener and every forwarded
+    connection."""
+
+    def __init__(self, P, target_port: int, drop_type: int,
+                 host: str = "127.0.0.1",
+                 should: Optional[Callable[[], bool]] = None):
+        self.P = P
+        self.should = should
+        self.target = (host, int(target_port))
+        self.drop_type = int(drop_type)
+        self.dropped = 0
+        self._lock = threading.Lock()
+        self._socks: List[socket.socket] = []
+        self._listen = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        self._listen.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        self._listen.bind((host, 0))
+        self._listen.listen(16)
+        self.port = self._listen.getsockname()[1]
+        threading.Thread(target=self._accept, daemon=True).start()
+
+    def _accept(self) -> None:
+        while True:
+            try:
+                client, _ = self._listen.accept()
+                server = socket.create_connection(self.target)
+            except OSError:
+                return
+            with self._lock:
+                self._socks += [client, server]
+            threading.Thread(target=self._pump, args=(client, server, True),
+                             daemon=True).start()
+            threading.Thread(target=self._pump, args=(server, client, False),
+                             daemon=True).start()
+
+    def _pump(self, src: socket.socket, dst: socket.socket,
+              filtered: bool) -> None:
+        buf = b""
+        try:
+            while True:
+                data = src.recv(1 << 16)
+                if not data:
+                    break
+                if not filtered:
+                    dst.sendall(data)
+                    continue
+                buf += data
+                while len(buf) >= 2:
+                    (n,) = struct.unpack_from(">H", buf, 0)
+                    if len(buf) < 2 + n:
+                        break
+                    frame, buf = buf[:2 + n], buf[2 + n:]
+                    if self._drops(frame[2:]):
+                        continue
+                    dst.sendall(frame)
+        except OSError:
+            pass
+        for sock in (src, dst):
+            try:
+                sock.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+
+    def _drops(self, payload: bytes) -> bool:
+        if len(payload) < 5 or self.P.peek_type(payload) != self.drop_type:
+            return False
+        with self._lock:
+            drop = (self.should() if self.should is not None
+                    else not self.dropped)
+            self.dropped += int(drop)
+            return drop
+
+    def close(self) -> None:
+        self._listen.close()
+        with self._lock:
+            socks, self._socks = self._socks, []
+        for sock in socks:
+            try:
+                sock.close()
+            except OSError:
+                pass

@@ -4,15 +4,36 @@ The same seeded numpy inputs go to the JAX package (the reference) and to
 its port in ``sentinel_tpu_torch``; results are compared with ``==`` on raw
 arrays, never ``allclose``: every summed value is an integer-valued float32
 below 2^24, so any difference is a semantic drift, not float noise.
+
+Importing it points the port's stat logs (``metrics.stat_logger``, which the
+token service feeds) at a temporary directory, so no test writes into the
+repo or the home directory.
 """
 
 from __future__ import annotations
 
+import atexit
+import shutil
+import tempfile
+
 import numpy as np
 
 from sentinel_tpu_torch import interop
+from sentinel_tpu_torch.core.config import SentinelConfig
+from sentinel_tpu_torch.metrics.stat_logger import LOG_DIR_KEY
 
 CPU = "cpu"
+
+
+def _stat_logs_to_tmp() -> None:
+    if SentinelConfig.get(LOG_DIR_KEY):
+        return
+    path = tempfile.mkdtemp(prefix="sentinel-torch-stat-")
+    SentinelConfig.set(LOG_DIR_KEY, path)
+    atexit.register(shutil.rmtree, path, True)
+
+
+_stat_logs_to_tmp()
 
 
 def to_np(x):
