@@ -140,7 +140,28 @@ Builds the port's CUDA kernels from ``sentinel_tpu_torch/csrc`` (one
    ms, the export's ms and lock-held ms, the MOVE_STATE bytes, the
    destination's commit and import ms, the MOVED rows and the
    over-admission;
-12. prints the timings, the card's name and power limit, one
+12. the hierarchy tier, the asyncio door and the token clients at phase
+   9's widths (``phase_hier``): phase 9's configuration on the card behind
+   the port's asyncio ``TokenServer`` and its torch-ops twin behind a
+   second one, spoken to by the port's ``TokenClient`` in lockstep (phase
+   9's rounds, then ``set_share_hold`` / ``share_holds`` /
+   ``demand_rates`` / ``window_budget`` on 16 held flows with pulls, the
+   manual clock crossing bucket and window edges): every answer and every
+   state leaf equal, one decide launch a device step and one count-min
+   launch a PARAM_FLOW frame, and a 16384-row pull's grouped dispatch
+   through the door free of synchronizing calls (sync debug mode); the
+   port's ``ShmTokenClient`` pulling 1024 rows through a native door's shm
+   ring over the same card service, equal to the twin; the reference's
+   hierarchy drill (``benchmarks/ha_drill.py::run_hier_drill``) at 100k
+   flows on a manual clock: pod A behind the asyncio door hosting the
+   ``GlobalBudgetCoordinator``, pod B behind the native door, 16 global
+   flows, bootstrap, skew, flip, a decision burst, a live window, a seeded
+   ``conn_reset``, the coordinator dark and the recovery, each gate per
+   flow; the ledger through ``export_state`` into a card standby; the
+   asyncio door's closed loop (one client), shm and TCP pull RTTs, an agent
+   tick, ``set_share_hold`` (and its lock hold), ``demand_rates`` and
+   ``reconcile_once`` times;
+13. prints the timings, the card's name and power limit, one
    ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
 
 Any failed check raises and exits non-zero. With no CUDA device, or run from
@@ -2628,6 +2649,665 @@ def phase_move(torch, dev):
     return out
 
 
+HIER_FLOWS = 16  # global flows of the drill: 0-3 and 12 spread over ranks
+HIER_ROWS = 64  # rows of each global flow in a drill burst (1024 a pull)
+HIER_RECONCILE_MS = 200
+HIER_SHARE_TTL_MS = 30_000
+HIER_HOLD_ROUNDS = 12  # rounds of 12a's hold sequence
+HIER_STEP_MS = 25  # manual-clock step of the drill's flat-out windows
+SHM_PULLS = 40  # 12b's lockstep pulls
+SHM_ROWS = 1024
+RTT_PULLS = 200  # 12b's timed pulls per client
+HOLD_TIMED = 20  # timed set_share_hold / demand_rates calls
+
+
+def hier_flows(rng) -> list:
+    """The drill's 16 global flows: the four Zipf-hottest and one seeded
+    plain (unshaped) flow in each of 12 geometric rank bands."""
+    edges = np.geomspace(4, F, HIER_FLOWS - 3).astype(np.int64)
+    out = [0, 1, 2, 3]
+    for lo, hi in zip(edges[:-1], edges[1:]):
+        while True:
+            fid = int(rng.integers(lo, max(lo + 1, hi)))
+            if fid % 97 and fid % 89 and fid % 83 and fid not in out:
+                out.append(fid)
+                break
+    return out
+
+
+def phase_hier(torch, dev):
+    """The hierarchy tier, the asyncio door and the token clients at phase
+    9's widths (``phase_hier``).
+
+    12a. Phase 9's configuration on the card behind the port's asyncio
+       ``TokenServer``, and its torch-ops twin behind a second one; the
+       port's ``TokenClient`` sends each phase 9's lockstep rounds
+       (``torch_hier_check.client_lockstep``) and then a hold sequence on
+       the 16 global flows (``set_share_hold`` / ``share_holds`` /
+       ``demand_rates`` / ``window_budget`` with pulls through the doors,
+       the manual clock crossing bucket and window edges); every answer and
+       at the end every state leaf is equal; decide launches equal device
+       steps, count-min launches PARAM_FLOW frames; a 16384-row pull's
+       grouped dispatch through the door runs under torch's sync debug
+       mode.
+    12b. The port's ``ShmTokenClient`` sends 1024-row pulls to a port
+       ``NativeTokenServer`` over the same card service (``shm_dir``),
+       equal to the same pulls given to the twin in process.
+    12c. The reference's hierarchy drill (``benchmarks/ha_drill.py::
+       run_hier_drill``) at 100k flows on a manual clock: pod A behind the
+       asyncio door hosting the ``GlobalBudgetCoordinator``, pod B behind
+       the native door, one ``PodShareAgent`` each through the port's
+       ``TokenClient``, 16 global flows each budgeted at its rule count;
+       bootstrap, skew, flip, a decision burst, a live flat-out window, a
+       seeded ``conn_reset``, the coordinator dark and the recovery, every
+       gate per flow; then the ledger through ``export_state`` into a card
+       standby and the ``ServerMetrics`` hierarchy block.
+
+    Then timings on the system clock: the asyncio door's closed loop (one
+    client, phase 9's client code), shm and TCP pull RTTs at 1024 rows on
+    the native door; an agent tick, ``set_share_hold`` (and the ms it
+    holds the service lock), ``demand_rates`` and ``reconcile_once``.
+    """
+    import torch_door_check as DK
+    import torch_hier_check as HC
+    import torch_kernel_check as DC
+
+    from sentinel_tpu_torch.cluster import protocol as P
+    from sentinel_tpu_torch.cluster.client import TokenClient
+    from sentinel_tpu_torch.cluster.concurrent import ConcurrentFlowRule
+    from sentinel_tpu_torch.cluster.server import TokenServer
+    from sentinel_tpu_torch.cluster.server_native import NativeTokenServer
+    from sentinel_tpu_torch.cluster.shm_client import ShmTokenClient
+    from sentinel_tpu_torch.cluster.token_service import DefaultTokenService
+    from sentinel_tpu_torch.core import clock
+    from sentinel_tpu_torch.engine import EngineConfig
+    from sentinel_tpu_torch.engine.param import ParamConfig
+    from sentinel_tpu_torch.ops import cms_cuda
+    from sentinel_tpu_torch.ops import decide_cuda as K
+
+    t_phase = time.perf_counter()
+    ident = gpu_identity()
+    cfg = EngineConfig(max_flows=F, max_namespaces=NS, batch_size=SIZES[-1])
+    rules, degrade, param_rules = flow_rules()
+    param_flows = [r.flow_id for r in param_rules]
+    flows = hier_flows(np.random.default_rng(61))
+    zipf = DC.ZipfIds(F, alpha=1.1)
+    flow_ids = np.arange(F, dtype=np.int64)
+    out = {"flows": flows}
+
+    def service(twin=False):
+        c = cfg._replace(decide_impl="xla") if twin else cfg
+        pc = ParamConfig(impl="jax" if twin else "auto")
+        s = DefaultTokenService(c, param_config=pc, device=dev)
+        s.load_degrade_rules(degrade)
+        s.load_rules(rules, ns_max_qps=1e9)
+        s.load_param_rules(param_rules)
+        s.load_concurrent_rules([ConcurrentFlowRule(
+            f, 2, resource_timeout_ms=600_000) for f in DOOR_CONC_FLOWS])
+        return s
+
+    def fails_in(st) -> int:
+        return int((np.asarray(st) == HC.FAIL).sum())
+
+    mc = clock.ManualClock(int(time.time() * 1000) - 60_000)
+    prev = clock.set_clock(mc)
+    shm_dir = os.path.join(HERE, "sentinel_tpu_torch", "build", "shm12")
+    os.makedirs(shm_dir, exist_ok=True)
+    t0 = time.perf_counter()
+    svc, twin = service(), service(twin=True)
+    # push=False: a pushed breaker flip makes a client answer DEGRADED on
+    # its own monotonic clock, without a frame; the lockstep holds wire
+    # answers at the manual clock, so every request must reach a door
+    door = TokenServer(svc, host="127.0.0.1", port=0, idle_ttl_s=None,
+                       push=False)
+    twin_door = TokenServer(twin, host="127.0.0.1", port=0, idle_ttl_s=None,
+                            push=False)
+    native = NativeTokenServer(svc, host="127.0.0.1", port=0,
+                               idle_ttl_s=None, shm_dir=shm_dir)
+    clients = []
+    try:
+        door.start()
+        twin_door.start()
+        native.start()
+        out["setup_s"] = time.perf_counter() - t0
+        c_card = TokenClient("127.0.0.1", door.port, timeout_ms=60_000)
+        c_twin = TokenClient("127.0.0.1", twin_door.port, timeout_ms=60_000)
+        clients += [c_card, c_twin]
+
+        # --- 12a. lockstep through the asyncio door ---------------------
+        steps = DK.lockstep_plan(
+            np.random.default_rng(53), zipf, flow_ids, DOOR_PULLS,
+            param_flows, door_lease_flows(), DOOR_CONC_FLOWS, DOOR_ROUNDS,
+            P.MAX_BATCH_PER_FRAME, OUTCOME_ADVANCES_MS)
+        c_card.ping()
+        c_twin.ping()
+        K.LAUNCHES.update(dict.fromkeys(K.LAUNCHES, 0))
+        cms_cuda.LAUNCHES.update(dict.fromkeys(cms_cuda.LAUNCHES, 0))
+        t0 = time.perf_counter()
+        ls = HC.client_lockstep(P, [c_card, c_twin], steps, mc.advance)
+        lockstep_s = time.perf_counter() - t0
+        others = [int(f) for f in zipf(np.random.default_rng(59), 16)]
+        hold = HC.run_hold_plan(
+            [(svc, c_card.request_batch_arrays),
+             (twin, c_twin.request_batch_arrays)],
+            HC.hold_plan(np.random.default_rng(57), flows, HIER_HOLD_ROUNDS,
+                         others=others),
+            mc.advance)
+        launches = K.LAUNCHES["decide_rows"]
+        param_launches = cms_cuda.LAUNCHES["cms_decide_update"]
+        if launches != ls["device_steps"] + hold["pulls"]:
+            raise AssertionError(
+                f"hier: decide kernel launched {launches} times for "
+                f"{ls['device_steps']} + {hold['pulls']} device steps")
+        if param_launches != ls["param_frames"]:
+            raise AssertionError(
+                f"hier: count-min launched {param_launches} times for "
+                f"{ls['param_frames']} PARAM_FLOW frames")
+        if ls["fails"] or hold["fails"]:
+            raise AssertionError(f"hier: FAIL answers: lockstep "
+                                 f"{ls['fails']}, holds {hold['fails']}")
+        if not (ls["statuses"].get(12) and hold["holds"]
+                and svc.lease_stats()["granted"]):
+            raise AssertionError(
+                f"hier: the lockstep reached too little: {ls['statuses']}, "
+                f"holds {hold['holds']}")
+
+        # one grouped 16384-row dispatch through the door under sync debug
+        # mode: the mode is process-wide, so a lock keeps every
+        # materialize out of the window in which it is on
+        dispatch = svc.dispatch_batch_arrays
+        gate = threading.Lock()
+        checked = []
+
+        def checked_dispatch(ids, counts=None, prios=None):
+            with gate:
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    mat = dispatch(ids, counts, prios)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                checked.append(len(ids))
+
+            def materialize():
+                with gate:
+                    return mat()
+            return materialize
+
+        ids = zipf(np.random.default_rng(67), SIZES[-1])
+        torch.cuda.synchronize()
+        svc.dispatch_batch_arrays = checked_dispatch
+        try:
+            a = c_card.request_batch_arrays(ids)
+        finally:
+            del svc.dispatch_batch_arrays
+        b = c_twin.request_batch_arrays(ids)
+        if a is None or not all(np.array_equal(x, y) for x, y in zip(a, b)) \
+                or fails_in(a[0]) or sum(checked) != ids.size:
+            raise AssertionError(f"hier: the sync-checked pull ({checked}) "
+                                 f"differs from the twin's or failed")
+        bad = [f"{pn}.{f}" for pn, pa, pb in zip(
+                   svc._state._fields, svc._state, twin._state)
+               for f, x, y in zip(pa._fields, pa, pb) if not torch.equal(x, y)]
+        bad += [f"param.{f}" for f, x, y in zip(
+                    svc._param_state._fields, svc._param_state,
+                    twin._param_state) if not torch.equal(x, y)]
+        for name in ("outcome_stats", "breaker_stats", "lease_stats"):
+            if getattr(svc, name)() != getattr(twin, name)():
+                bad.append(name)
+        if bad:
+            raise AssertionError(f"hier: {bad} differ from the twin's")
+        out["lockstep"] = dict(
+            steps=len(steps), kinds=ls["kinds"], seconds=lockstep_s,
+            decide_launches=launches, param_launches=param_launches,
+            device_steps=ls["device_steps"] + hold["pulls"],
+            param_frames=ls["param_frames"], verdicts=ls["statuses"],
+            hold_calls=hold["hold_calls"], hold_pulls=hold["pulls"],
+            hold_verdicts=hold["statuses"], holds_last=hold["holds"],
+            sync_checked_dispatches=len(checked))
+        log(f"hier 12a: {len(steps)} frames ({ls['kinds']}) and "
+            f"{hold['hold_calls']} share holds with {hold['pulls']} pulls "
+            f"through the asyncio door equal to the twin's, every state leaf "
+            f"equal; {launches} decide launches = device steps, "
+            f"{param_launches} count-min launches = PARAM_FLOW frames; "
+            f"verdicts {ls['statuses']}; {len(checked)} grouped dispatches "
+            f"of a 16384-row pull make no synchronizing call")
+
+        # --- 12b. the shared-memory client ------------------------------
+        shm = ShmTokenClient(shm_dir, timeout_ms=60_000)
+        clients.append(shm)
+        rng = np.random.default_rng(71)
+        K.LAUNCHES.update(dict.fromkeys(K.LAUNCHES, 0))
+        shm_statuses = {}
+        for _ in range(SHM_PULLS):
+            ids = zipf(rng, SHM_ROWS)
+            a = shm.request_batch_arrays(ids)
+            b = twin.request_batch_arrays(ids)
+            if a is None or not all(np.array_equal(x, y)
+                                    for x, y in zip(a, b)) or fails_in(a[0]):
+                raise AssertionError("hier 12b: shm verdicts differ from "
+                                     "the twin's")
+            for code, n in zip(*np.unique(a[0], return_counts=True)):
+                shm_statuses[int(code)] = shm_statuses.get(int(code), 0) + \
+                    int(n)
+            mc.advance(int(rng.integers(5, 60)))
+        if K.LAUNCHES["decide_rows"] != SHM_PULLS:
+            raise AssertionError(f"hier 12b: {K.LAUNCHES['decide_rows']} "
+                                 f"decide launches for {SHM_PULLS} pulls")
+        out["shm"] = dict(pulls=SHM_PULLS, rows=SHM_ROWS,
+                          decide_launches=K.LAUNCHES["decide_rows"],
+                          verdicts=shm_statuses)
+        log(f"hier 12b: {SHM_PULLS} ShmTokenClient pulls of {SHM_ROWS} rows "
+            f"through the native door's shm ring equal to the twin's in "
+            f"process; verdicts {shm_statuses}")
+
+        # --- holds and demand reads, timed (manual clock) ---------------
+        held = LockHeld(svc._lock)
+        held.watch = threading.get_ident()
+        svc._lock = held
+        hold_ms, hold_lock_ms, rates_ms = [], [], []
+        try:
+            for k in range(HOLD_TIMED):
+                held.ms = 0.0
+                t0 = time.perf_counter()
+                svc.set_share_hold(flows[k % len(flows)], 40 + k)
+                hold_ms.append((time.perf_counter() - t0) * 1e3)
+                hold_lock_ms.append(held.ms)
+                t0 = time.perf_counter()
+                svc.demand_rates(flows)
+                rates_ms.append((time.perf_counter() - t0) * 1e3)
+                mc.advance(37)
+        finally:
+            svc._lock = held.lock
+        out["hold_ms"] = quantiles(hold_ms)
+        out["hold_lock_ms"] = quantiles(hold_lock_ms)
+        out["demand_rates_ms"] = quantiles(rates_ms)
+        log(f"hier at F={F}: set_share_hold ms {out['hold_ms']}, of it "
+            f"under the service lock {out['hold_lock_ms']}; demand_rates "
+            f"(16 flows) ms {out['demand_rates_ms']} ({ident})")
+
+        # --- the rest runs on the system clock --------------------------
+        clock.set_clock(prev)
+        loops = {}
+        pool = multiprocessing.get_context("spawn").Pool(
+            1, initializer=DK.worker_init,
+            initargs=("torch_kernel_check", P.__name__))
+        try:
+            pool.map(time.sleep, [0.2])
+            for n in DOOR_PULLS:
+                res = DK.closed_loop(P, door.port, flow_ids, zipf, n,
+                                     DOOR_SECONDS, 1, P.MAX_BATCH_PER_FRAME,
+                                     pool, seed=80 + n)
+                if res["errors"]:
+                    raise AssertionError(f"hier asyncio closed loop n={n}: "
+                                         f"{res['errors'][:5]}")
+                loops[str(n)] = res
+                log(f"hier asyncio door closed loop n={n} clients=1: "
+                    f"{res['served_verdicts_per_s']:.0f} served verdicts/s, "
+                    f"RTT p50 {res['rtt_p50_ms']:.3f} ms, p99 "
+                    f"{res['rtt_p99_ms']:.3f} ms over {res['pulls']} pulls, "
+                    f"statuses {res['statuses']} ({ident})")
+        finally:
+            pool.close()
+            pool.join()
+        out["asyncio_closed_loop"] = loops
+        tcp = TokenClient("127.0.0.1", native.port, timeout_ms=60_000)
+        clients.append(tcp)
+        rtt = {}
+        rng = np.random.default_rng(73)
+        for name, c in (("shm", shm), ("tcp", tcp)):
+            lat = []
+            for _ in range(RTT_PULLS):
+                ids = zipf(rng, SHM_ROWS)
+                t0 = time.perf_counter()
+                a = c.request_batch_arrays(ids)
+                lat.append((time.perf_counter() - t0) * 1e3)
+                if a is None or fails_in(a[0]):
+                    raise AssertionError(f"hier: a timed {name} pull failed")
+            rtt[name] = quantiles(lat)
+        out["native_rtt_1024"] = rtt
+        log(f"hier native door, 1024-row pulls: ShmTokenClient RTT p50 "
+            f"{rtt['shm']['p50']:.3f} ms, TCP TokenClient p50 "
+            f"{rtt['tcp']['p50']:.3f} ms ({RTT_PULLS} each; {ident})")
+    finally:
+        clock.set_clock(prev)
+        for c in clients:
+            c.close()
+        door.stop()
+        twin_door.stop()
+        native.stop()
+    del svc, twin
+
+    # --- 12c. the hierarchy drill at 100k flows -------------------------
+    out["drill"] = hier_drill(torch, dev, flows)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"hier phase: {out['phase_s']:.1f} s ({ident})")
+    return out
+
+
+def hier_drill(torch, dev, flows) -> dict:
+    """``benchmarks/ha_drill.py::run_hier_drill``'s stages and gates, per
+    flow, over the 16 global flows at 100k flows, on a manual clock (see
+    ``phase_hier``). Raises naming every failed gate."""
+    import torch_hier_check as HC
+
+    from sentinel_tpu_torch import chaos
+    from sentinel_tpu_torch.cluster.client import TokenClient
+    from sentinel_tpu_torch.cluster.hierarchy import (
+        GlobalBudgetCoordinator,
+        GlobalFlowBudget,
+        PodShareAgent,
+    )
+    from sentinel_tpu_torch.cluster.server import TokenServer
+    from sentinel_tpu_torch.cluster.server_native import NativeTokenServer
+    from sentinel_tpu_torch.cluster.token_service import DefaultTokenService
+    from sentinel_tpu_torch.core import clock
+    from sentinel_tpu_torch.engine import ClusterFlowRule, EngineConfig
+    from sentinel_tpu_torch.engine import ThresholdMode
+    from sentinel_tpu_torch.metrics.server import server_metrics
+
+    rules = service_rules(ClusterFlowRule, ThresholdMode)
+    # one namespace row more than the rules use: the clients join "default",
+    # and the standby's restore seats it
+    cfg = EngineConfig(max_flows=F, max_namespaces=NS + 1,
+                       batch_size=SIZES[-1])
+    count = {r.flow_id: r.count for r in rules}
+    budget = np.asarray([int(count[f] * 1.0) for f in flows], np.int64)
+    slack = np.maximum(2, (budget * HIER_RECONCILE_MS) // 1000)
+    budgets = [GlobalFlowBudget(f, count[f], 1.0) for f in flows]
+    window_ms = cfg.bucket_ms * cfg.n_buckets
+    fails = []
+    out = {"budget_tokens": budget.tolist(), "slack_tokens": slack.tolist(),
+           "reconcile_ms": HIER_RECONCILE_MS}
+    mc = clock.ManualClock(int(time.time() * 1000) + 5_000)
+    prev = clock.set_clock(mc)
+    t0 = time.perf_counter()
+    # the standby first and pod A last: ServerMetrics scrapes the most
+    # recently built service, pod A
+    standby = DefaultTokenService(cfg, device=dev)
+    standby.attach_hierarchy(GlobalBudgetCoordinator(
+        budgets, share_ttl_ms=HIER_SHARE_TTL_MS,
+        reconcile_ms=HIER_RECONCILE_MS))
+    pods = []
+    for _ in range(2):
+        s = DefaultTokenService(cfg, device=dev)
+        s.load_rules(rules, ns_max_qps=1e9)
+        pods.append(s)
+    svc_b, svc_a = pods
+    coord = GlobalBudgetCoordinator(budgets, share_ttl_ms=HIER_SHARE_TTL_MS,
+                                    reconcile_ms=HIER_RECONCILE_MS)
+    svc_a.attach_hierarchy(coord)
+    srv_a = TokenServer(svc_a, host="127.0.0.1", port=0, idle_ttl_s=None)
+    srv_b = NativeTokenServer(svc_b, host="127.0.0.1", port=0,
+                              idle_ttl_s=None)
+    agents, clients = [], []
+    try:
+        srv_a.start()
+        srv_b.start()
+        ep = f"127.0.0.1:{srv_a.port}"
+        factory = HC.single_endpoint(TokenClient)
+        ag_a = PodShareAgent(svc_a, [ep], "pod-a", budgets, tick_ms=100,
+                             timeout_ms=5000, deadline_ms=5000,
+                             client_cls=factory)
+        ag_b = PodShareAgent(svc_b, [ep], "pod-b", budgets, tick_ms=100,
+                             timeout_ms=5000, deadline_ms=5000,
+                             client_cls=factory)
+        agents += [ag_a, ag_b]
+        cl_a = TokenClient("127.0.0.1", srv_a.port, timeout_ms=60_000)
+        cl_b = TokenClient("127.0.0.1", srv_b.port, timeout_ms=60_000)
+        clients += [cl_a, cl_b]
+        out["setup_s"] = time.perf_counter() - t0
+        rng = np.random.default_rng(83)
+        index = {f: i for i, f in enumerate(flows)}
+        tick_ms, reconcile_ms, fail_rows = [], [], [0]
+
+        def burst(cl) -> np.ndarray:
+            """One 1024-row pull, HIER_ROWS rows of each global flow;
+            returns the tokens admitted per flow."""
+            ids = rng.permutation(np.repeat(np.asarray(flows, np.int64),
+                                            HIER_ROWS))
+            res = cl.request_batch_arrays(ids)
+            if res is None:
+                raise AssertionError("hier drill: a burst got no answer")
+            st = res[0]
+            fail_rows[0] += int((st == HC.FAIL).sum())
+            pos = np.fromiter((index[int(f)] for f in ids), np.int64,
+                              ids.size)
+            return np.bincount(pos[st == 0], minlength=len(flows))
+
+        def tick(*ags):
+            for ag in ags:
+                t = time.perf_counter()
+                ag.tick()
+                tick_ms.append((time.perf_counter() - t) * 1e3)
+
+        def reconcile():
+            t = time.perf_counter()
+            coord.reconcile_once()
+            reconcile_ms.append((time.perf_counter() - t) * 1e3)
+
+        def round_():
+            tick(ag_a, ag_b)
+            reconcile()
+
+        def shares():
+            a, b = ag_a.shares(), ag_b.shares()
+            return (np.asarray([a[f] for f in flows], np.int64),
+                    np.asarray([b[f] for f in flows], np.int64))
+
+        def gate(ok, what):
+            ok = np.asarray(ok)
+            if not ok.all():
+                fails.append(f"{what} (flows "
+                             f"{[flows[i] for i in np.nonzero(~ok)[0]]})")
+
+        def drain(dark=False):
+            # the window empties while the holds are re-topped
+            for _ in range(window_ms // HIER_RECONCILE_MS + 2):
+                mc.advance(HIER_RECONCILE_MS)
+                if dark:
+                    tick(ag_a, ag_b)
+                else:
+                    round_()
+
+        def flat_out(dark=False) -> np.ndarray:
+            """Both pods driven flat out for one window less 2.5 buckets,
+            the control plane pacing every reconcile interval."""
+            admits = np.zeros(len(flows), np.int64)
+            drive_ms = window_ms - 5 * cfg.bucket_ms // 2
+            since = 0
+            for _ in range(drive_ms // HIER_STEP_MS):
+                admits += burst(cl_a) + burst(cl_b)
+                mc.advance(HIER_STEP_MS)
+                since += HIER_STEP_MS
+                if since >= HIER_RECONCILE_MS:
+                    since = 0
+                    if dark:
+                        tick(ag_a, ag_b)
+                    else:
+                        round_()
+            return admits
+
+        # bootstrap: no demand, the equal split conserves every budget
+        round_()
+        round_()
+        s_a, s_b = shares()
+        out["bootstrap"] = {"share_a": s_a.tolist(), "share_b": s_b.tolist()}
+        gate(s_a + s_b == budget, "bootstrap shares do not sum to the budget")
+        gate((np.abs(s_a - s_b) <= 1) & (s_a > 0),
+             "bootstrap split is not the equal water-fill")
+
+        # skew to A: demand on pod A; A >= 2 B within 3 reconcile ticks of
+        # the report landing
+        for _ in range(5):
+            burst(cl_a)
+            mc.advance(10)
+        tick(ag_a, ag_b)
+        rounds = np.full(len(flows), -1)
+        for r in range(1, 7):
+            reconcile()
+            tick(ag_a, ag_b)
+            s_a, s_b = shares()
+            rounds[(rounds < 0) & (s_a >= 2 * s_b)] = r
+            if (rounds > 0).all():
+                break
+        out["skew"] = {"rounds": rounds.tolist(), "share_a": s_a.tolist(),
+                       "share_b": s_b.tolist()}
+        gate((rounds > 0) & (rounds <= 3),
+             "skewed demand did not win 2x the share within 3 ticks")
+        gate(s_a + s_b <= budget, "post-skew shares exceed the budget")
+
+        # flip to B: A's demand drains from its window; from the re-target,
+        # B >= 2 A within 3 ticks
+        retarget = np.full(len(flows), -1)
+        converged = np.full(len(flows), -1)
+        r = 0
+        while r < 40 and not (converged > 0).all():
+            r += 1
+            burst(cl_b)
+            tick(ag_a, ag_b)
+            reconcile()
+            tg = coord.stats()["targets"]
+            s_a, s_b = shares()
+            for i, f in enumerate(flows):
+                t = tg.get(f, {})
+                # the re-target favours B by more than the one token an
+                # equal water-fill of an odd budget hands the pod named last
+                if retarget[i] < 0 and \
+                        t.get("pod-b", 0) > t.get("pod-a", 0) + 1:
+                    retarget[i] = r
+                elif retarget[i] > 0 and converged[i] < 0 and \
+                        s_b[i] >= 2 * s_a[i]:
+                    converged[i] = r - retarget[i]
+            mc.advance(cfg.bucket_ms)
+        out["flip"] = {"rounds_total": r, "retarget_round": retarget.tolist(),
+                       "rounds_after_retarget": converged.tolist(),
+                       "share_a": s_a.tolist(), "share_b": s_b.tolist()}
+        gate((converged > 0) & (converged <= 3),
+             "the demand flip did not converge within 3 ticks of the "
+             "re-target")
+        gate(s_a + s_b <= budget, "post-flip shares exceed the budget")
+
+        # a decision burst moves no agent RPC
+        rpc0 = ag_a.stats()["agent_rpcs"] + ag_b.stats()["agent_rpcs"]
+        for _ in range(2):
+            burst(cl_a)
+            burst(cl_b)
+        out["decision_rpcs"] = (ag_a.stats()["agent_rpcs"]
+                                + ag_b.stats()["agent_rpcs"] - rpc0)
+        if out["decision_rpcs"]:
+            fails.append(f"{out['decision_rpcs']} agent RPCs during a "
+                         f"decision burst")
+
+        # live: both pods flat out for a window
+        drain()
+        admits = flat_out()
+        over = np.maximum(0, admits - budget)
+        out["live"] = {"admits": admits.tolist(),
+                       "over_admission": over.tolist()}
+        gate(over <= slack, "live over-admission exceeds the slack")
+
+        # a seeded conn_reset mid-tick: B's agent neither raises nor loses
+        # a share
+        s_a0, s_b0 = shares()
+        chaos.arm("conn_reset:n=1", seed=7)
+        try:
+            tick(ag_b)
+        except Exception as exc:  # the gate: a tick must not raise
+            fails.append(f"B's agent tick raised under chaos: {exc!r}")
+        finally:
+            fired = chaos.fired()
+            chaos.disarm()
+        s_a, s_b = shares()
+        out["chaos"] = {"fired": fired,
+                        "report_fail": ag_b.stats()["agent_report_fail"]}
+        if not fired.get("conn_reset"):
+            fails.append("the chaos conn_reset never fired")
+        gate(s_b == s_b0, "the chaos-cut tick lost B's share")
+
+        # the coordinator dark: the last shares hold, degraded is flagged,
+        # and a dark window admits at most the shares plus the slack
+        svc_a.hierarchy = None
+        for _ in range(3):
+            tick(ag_a, ag_b)
+        s_a, s_b = shares()
+        gate((s_a == s_a0) & (s_b == s_b0), "the dark pods moved their shares")
+        if not (ag_a.stats()["agent_degraded"]
+                and ag_b.stats()["agent_degraded"]):
+            fails.append("the dark agents never flagged degraded")
+        drain(dark=True)
+        admits = flat_out(dark=True)
+        over = np.maximum(0, admits - (s_a + s_b))
+        out["dark"] = {"admits": admits.tolist(),
+                       "share_sum": (s_a + s_b).tolist(),
+                       "over_admission": over.tolist()}
+        gate(over <= slack, "dark over-admission exceeds the shares plus "
+             "the slack")
+
+        # recovery: one round re-leases every pod's share of every flow
+        svc_a.attach_hierarchy(coord)
+        round_()
+        out["recovery_outstanding"] = coord.stats()["outstanding_shares"]
+        if out["recovery_outstanding"] != 2 * len(flows):
+            fails.append(f"{out['recovery_outstanding']} outstanding shares "
+                         f"after the recovery (want {2 * len(flows)})")
+        if fail_rows[0]:
+            fails.append(f"{fail_rows[0]} FAIL verdicts in the bursts")
+
+        # the ledger rides the snapshot into a card standby
+        t0 = time.perf_counter()
+        state = svc_a.export_state()
+        export_ms = (time.perf_counter() - t0) * 1e3
+        doc = coord.export_doc()
+        if state.get("hier") != doc:
+            fails.append("pod A's export_state hier block is not the "
+                         "coordinator's export_doc")
+        t0 = time.perf_counter()
+        standby.import_state(state)
+        import_ms = (time.perf_counter() - t0) * 1e3
+        if standby.hierarchy.export_doc() != doc:
+            fails.append("the standby's ledger differs from pod A's")
+        hs = server_metrics().hier_stats()
+        holds = sum(svc_a.share_holds().values())
+        for key in ("agent_ticks", "agent_rpcs", "share_grants",
+                    "share_renews", "reconciles", "demand_reports"):
+            if key not in hs:
+                fails.append(f"ServerMetrics hier block lacks {key}")
+        if hs.get("hold_tokens") != holds:
+            fails.append(f"hier block hold_tokens {hs.get('hold_tokens')} "
+                         f"!= {holds}")
+        out["snapshot"] = {"export_ms": export_ms, "import_ms": import_ms,
+                           "shares": len(next(iter(doc["flows"].values()))[
+                               "shares"])}
+        out["hier_stats"] = {k: v for k, v in hs.items()
+                             if not isinstance(v, dict)}
+
+        # timings: an agent tick (17 RPCs), reconcile_once
+        out["agent_tick_ms"] = quantiles(tick_ms)
+        out["reconcile_ms"] = quantiles(reconcile_ms)
+        out["agent_rpcs_a_tick"] = 1 + len(flows)
+    finally:
+        clock.set_clock(prev)
+        for c in clients:
+            c.close()
+        for ag in agents:
+            ag.close()
+        coord.stop()
+        srv_a.stop()
+        srv_b.stop()
+    log(f"hier drill (16 global flows, budgets {out['budget_tokens']}): "
+        f"bootstrap {out['bootstrap']}; skew {out['skew']}; flip "
+        f"{out['flip']}; decision RPCs {out['decision_rpcs']}; live "
+        f"{out['live']}; chaos {out['chaos']}; dark {out['dark']}; recovery "
+        f"{out['recovery_outstanding']} shares; ledger through the snapshot "
+        f"(export {out['snapshot']['export_ms']:.1f} ms, standby import "
+        f"{out['snapshot']['import_ms']:.1f} ms); agent tick ms "
+        f"{out['agent_tick_ms']}, reconcile ms {out['reconcile_ms']} "
+        f"({gpu_identity()})")
+    if fails:
+        raise AssertionError("hier drill: " + "; ".join(fails))
+    return out
+
+
 def window_less_bucket_ms(svc) -> int:
     """A service's window less one bucket, in ms."""
     c = svc.config
@@ -2809,6 +3489,7 @@ def main() -> int:
     door = phase_door(torch, dev)
     ha = phase_ha(torch, dev)
     move = phase_move(torch, dev)
+    hier = phase_hier(torch, dev)
     service[SIZES[-1]].update(profiled_pulls())
     for sketch, kernels_a_call in profiled_params().items():
         param_service[sketch]["profiled"] = kernels_a_call
@@ -2835,6 +3516,7 @@ def main() -> int:
         "launches_ha_phase": ha["promoted"]["decide_launches"],
         "launches_move_phase": move["move"]["destination_lockstep"][
             "decide_launches"],
+        "launches_hier_phase": hier["lockstep"]["decide_launches"],
     }]
     for sketch, name, line in (("cms", "cms_decide_update", 49),
                                ("salsa", "salsa_decide_update", 37)):
@@ -2861,6 +3543,8 @@ def main() -> int:
             "launches_move_phase": (
                 move["move"]["destination_lockstep"]["param_launches"]
                 if sketch == "cms" else move["salsa"]["launches"]),
+            "launches_hier_phase": (hier["lockstep"]["param_launches"]
+                                    if sketch == "cms" else 0),
             "parity_steps": param_parity[sketch][1],
             "by_n": {str(n): v for n, v in param_timing[sketch].items()},
         })
@@ -2888,6 +3572,7 @@ def main() -> int:
                     "door": door,
                     "ha": ha,
                     "move": move,
+                    "hier": hier,
                     "gpu": ident}))
     log(ident)
     log(json.dumps({"kernels": kernels}))

@@ -1246,7 +1246,7 @@ class NativeTokenServer:
             door.send(fd, gen, rsp_bytes)
             return
         # hierarchy-tier frames (pod share ops + demand reports): same
-        # control-lane treatment, answered NOT_LEASABLE (no coordinator)
+        # control-lane treatment, dispatched to the co-located coordinator
         if len(payload) >= 5 and P.peek_type(payload) in P.HIER_TYPES:
             try:
                 rsp_bytes = self._handle_hier(payload, address)
@@ -1322,22 +1322,45 @@ class NativeTokenServer:
         )
 
     def _handle_hier(self, payload, address: str) -> bytes:
-        """Hierarchy tier: decode a share op or demand report and answer it
-        in the lease layout. No coordinator is co-located with this package's
-        service yet (``service.hierarchy`` is None; ROADMAP item 6), so every
-        op is refused NOT_LEASABLE, and the agent's failover walk tries the
-        next endpoint. Raises ValueError on a torn frame (caller closes)."""
+        """Hierarchy tier: decode a share op or demand report, run the
+        co-located coordinator's ledger op, encode the (lease-layout)
+        reply. With no coordinator attached (``service.hierarchy`` is None)
+        every op is refused NOT_LEASABLE, so the agent's failover walk tries
+        the next endpoint. Raises ValueError on a torn frame (caller
+        closes)."""
         if P.peek_type(payload) == int(P.MsgType.DEMAND_REPORT):
-            xid, _pod_id, _entries = P.decode_demand_report(payload)
+            xid, pod_id, entries = P.decode_demand_report(payload)
             hmt = P.MsgType.DEMAND_REPORT
+            args = None
         else:
-            xid, hmt, *_ = P.decode_lease_request(payload)
+            xid, hmt, share_id, flow_id, used, want = (
+                P.decode_lease_request(payload)
+            )
+            args = (share_id, flow_id, used, want)
         if _TR.ARMED:
             _TR.record(_TR.HIER, xid=xid)
         self.connections.touch(address)
         if self.is_standby:
             return P.encode_lease_response(xid, hmt, _STANDBY)
-        return P.encode_lease_response(xid, hmt, P.NOT_LEASABLE_STATUS)
+        hier = self.service.hierarchy
+        if hier is None:
+            return P.encode_lease_response(xid, hmt, P.NOT_LEASABLE_STATUS)
+        try:
+            if hmt == P.MsgType.DEMAND_REPORT:
+                res = hier.handle_demand_report(pod_id, entries)
+            elif hmt == P.MsgType.SHARE_GRANT:
+                res = hier.share_grant(args[1], args[3])
+            elif hmt == P.MsgType.SHARE_RENEW:
+                res = hier.share_renew(args[0], args[1], args[2], args[3])
+            else:
+                res = hier.share_return(args[0], args[2])
+        except Exception:
+            record_log.exception("hier op failed")
+            return P.encode_lease_response(xid, hmt, int(TokenStatus.FAIL))
+        return P.encode_lease_response(
+            xid, hmt, int(res.status), lease_id=res.lease_id,
+            tokens=res.tokens, ttl_ms=res.ttl_ms, endpoint=res.endpoint,
+        )
 
     def _handle_control(self, req, address: str) -> P.FlowResponse:
         service = self.service

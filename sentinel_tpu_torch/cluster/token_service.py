@@ -45,9 +45,15 @@ plane's completions; per breaker scan the transition counters and, on a
 trip to OPEN, the blackbox dump; and the ``ServerMetrics`` providers
 (sketch, lease, outcome, breaker).
 
-A later slice: the hierarchy tier (``hierarchy`` stays None, so the door
-refuses hierarchy frames as the reference does on a server with no
-coordinator, and no hierarchy provider is registered).
+The hierarchy tier (:mod:`cluster.hierarchy`): a pod's share agent pins
+``window_budget − share`` tokens of a global flow as a LEASED-column hold
+(``set_share_hold``, migrated into the current bucket on every call, so the
+hold never ages out while the agent ticks), reads the flow's demand
+(``demand_rates``: PASS + BLOCK window sums), and a co-located
+``GlobalBudgetCoordinator`` (``attach_hierarchy``) answers the doors'
+hierarchy frames; its ledger rides ``export_state`` and ``export_delta`` as
+the ``hier`` block, and ``hier_stats`` feeds the ``ServerMetrics`` hierarchy
+provider.
 """
 
 from __future__ import annotations
@@ -426,8 +432,16 @@ class DefaultTokenService(TokenService):
         # rev-7 push plane: the front doors' hubs; emits are fire-and-forget
         # through non-blocking sinks, safe under self._lock
         self._push_hubs: List[object] = []
-        # the hierarchy tier's coordinator (a later slice): none here
+        # hierarchy tier (cluster.hierarchy): when this pod takes part in a
+        # global flow budget, its share agent pins the unprovisioned rest
+        # of the budget as a LEASED-column hold, so local headroom is the
+        # pod's share. Entries are (granted_ms, tokens) charges with the
+        # leases' exact-bucket lifecycle; the agent re-tops them every tick.
+        # `hierarchy` is the co-located coordinator, if any: both doors
+        # route hierarchy frames to it.
+        self._share_holds: Dict[int, List[Tuple[int, int]]] = {}
         self.hierarchy = None
+        self.share_agent = None
         # the process-wide ServerMetrics pulls these blocks through a
         # weakref, so a dead service pins no memory; the most recently
         # constructed service is the one scraped
@@ -443,6 +457,9 @@ class DefaultTokenService(TokenService):
                 _self()))
         _SM.register_breaker_provider(
             lambda: (lambda s: s.breaker_stats() if s is not None else {})(
+                _self()))
+        _SM.register_hier_provider(
+            lambda: (lambda s: s.hier_stats() if s is not None else {})(
                 _self()))
 
     @staticmethod
@@ -1371,14 +1388,7 @@ class DefaultTokenService(TokenService):
                               ids)
             + W.window_sum_at(spec, st.occupy, now, 0, ids)
         )[0])
-        factor = (
-            max(1, int(self._connected.get(rule.namespace, 1)))
-            if rule.mode == ThresholdMode.AVG_LOCAL else 1
-        )
-        threshold = (
-            float(rule.count) * factor * self.config.exceed_count
-            * (spec.interval_ms / 1000.0)
-        )
+        threshold = self._window_threshold_locked(rule, spec)
         grant = min(want, int((threshold - occupied) * self.lease_fraction))
         if grant < 1:
             return LeaseResult(int(TokenStatus.NOT_LEASABLE))
@@ -1453,6 +1463,164 @@ class DefaultTokenService(TokenService):
             )
             return out
 
+    # -- hierarchy tier (cluster.hierarchy) -----------------------------------
+    # A pod takes part in a global flow budget by loading the rule at the
+    # full budget and letting its share agent pin (window_budget − share)
+    # tokens as a LEASED-column hold: local headroom is then exactly the
+    # pod's share, and the decision path is untouched (the decide step
+    # already reads LEASED). Snapshots, deltas and MOVE carry the hold like
+    # any lease charge.
+
+    @staticmethod
+    def _live_hold(spec, starts: List[int], entries, now: int):
+        """The hold entries whose grant bucket still counts toward the
+        window sum: its start stamp (``starts``, the flow window's, read
+        from the device once by the caller under ``self._lock``) is the
+        grant's aligned start, so the bucket was never reused, and its age
+        is inside ``(now − interval, now]`` (the test of
+        ``stats.window.valid_mask``). A rotated-out bucket keeps its stale
+        stamp until a writer reuses it, so the age test is needed too."""
+        live = []
+        for granted_ms, tokens in entries:
+            idx, aligned = W.bucket_index(spec, granted_ms)
+            age = int(now) - aligned
+            if int(starts[idx]) == aligned and 0 <= age < spec.interval_ms:
+                live.append((granted_ms, tokens))
+        return live
+
+    def set_share_hold(self, flow_id: int, hold_tokens: int) -> int:
+        """Pin exactly ``hold_tokens`` of ``flow_id``'s window as a
+        LEASED-column hold, and return it. A hold is a standing reservation,
+        not traffic: left where it was charged it would age out of the
+        window one interval later and free its whole worth at once. So each
+        call migrates it: the live entries are credited back into their
+        exact grant buckets (start-stamp guarded, as a lease credit) and the
+        whole target is charged into the current bucket, in place, so the
+        window sum does not move within the call. If the agent stops, the
+        hold expires one window later and the flow reverts to its full
+        local budget."""
+        flow_id = int(flow_id)
+        hold_tokens = max(0, int(hold_tokens))
+        with self._lock:
+            slot = self._index.slot_of.get(flow_id)
+            if slot is None:
+                self._share_holds.pop(flow_id, None)
+                return 0
+            spec = flow_spec(self.config)
+            now = self._engine_now()
+            ws = self._state.flow
+            entries = self._share_holds.get(flow_id, [])
+            if entries:  # one device read
+                entries = self._live_hold(spec, ws.starts.tolist(), entries,
+                                          now)
+            leased = int(ClusterEvent.LEASED)
+            for granted_ms, tokens in entries:
+                idx, _ = W.bucket_index(spec, granted_ms)
+                ws.counts[slot, idx, leased].sub_(tokens)
+            if hold_tokens > 0:
+                row = [0] * N_CLUSTER_EVENTS
+                row[leased] = hold_tokens
+                self._fold_into_current(ws, spec, now, [slot], [row])
+                self._share_holds[flow_id] = [(now, hold_tokens)]
+            else:
+                self._share_holds.pop(flow_id, None)
+            if self._dirty is not None:
+                self._dirty["flow"].add(int(slot))
+            return hold_tokens
+
+    def share_holds(self) -> Dict[int, int]:
+        """Live hold tokens per flow (entries decayed by rotation left
+        out)."""
+        with self._lock:
+            now = self._engine_now()  # pins the epoch, as the reference's
+            if not self._share_holds:
+                return {}
+            spec = flow_spec(self.config)
+            starts = self._state.flow.starts.tolist()  # one device read
+            out = {
+                fid: sum(t for _, t in self._live_hold(spec, starts, ents,
+                                                       now))
+                for fid, ents in self._share_holds.items()
+            }
+            # a fully decayed hold is no hold: the registry entry waits for
+            # the next set
+            return {fid: t for fid, t in out.items() if t > 0}
+
+    def _window_threshold_locked(self, rule, spec) -> float:
+        """The tokens a window the decide step admits on ``rule``'s flow:
+        count × connected factor (AVG_LOCAL) × exceed_count × window
+        seconds. Caller holds ``self._lock``."""
+        factor = (
+            max(1, int(self._connected.get(rule.namespace, 1)))
+            if rule.mode == ThresholdMode.AVG_LOCAL else 1
+        )
+        return (float(rule.count) * factor * self.config.exceed_count
+                * (spec.interval_ms / 1000.0))
+
+    def window_budget(self, flow_id: int) -> int:
+        """The flow's whole token budget a window (the decide step's
+        threshold). The share agent holds ``window_budget − share``."""
+        with self._lock:
+            rule = self._rule_of.get(int(flow_id))
+            if rule is None:
+                return 0
+            return int(self._window_threshold_locked(rule,
+                                                     flow_spec(self.config)))
+
+    def demand_rates(self, flow_ids) -> Dict[int, float]:
+        """Observed arrival rate per flow in tokens/s: PASS + BLOCK window
+        sums over the interval (one device read for all flows). BLOCK counts
+        blocked tokens, so a pod squeezed to a small share still reports its
+        whole demand, which lets the coordinator move share back to it."""
+        out: Dict[int, float] = {}
+        known = []
+        with self._lock:
+            spec = flow_spec(self.config)
+            now = self._engine_now()
+            for fid in flow_ids:
+                slot = self._index.slot_of.get(int(fid))
+                if slot is None:
+                    out[int(fid)] = 0.0
+                else:
+                    known.append((int(fid), int(slot)))
+            if known:
+                ids = self._dev(np.asarray([s for _, s in known], np.int64))
+                ws = self._state.flow
+                sums = (
+                    W.window_sum_at(spec, ws, now, int(ClusterEvent.PASS),
+                                    ids)
+                    + W.window_sum_at(spec, ws, now, int(ClusterEvent.BLOCK),
+                                      ids)
+                ).cpu().numpy()
+                interval_s = spec.interval_ms / 1000.0
+                for (fid, _), v in zip(known, sums):
+                    out[fid] = float(v) / interval_s
+        return out
+
+    def attach_hierarchy(self, coordinator) -> None:
+        """Co-locate the global budget coordinator with this pod: both
+        doors route hierarchy frames to it, its ledger rides this service's
+        snapshots and deltas, and its counters join ``hier_stats``."""
+        self.hierarchy = coordinator
+
+    def attach_share_agent(self, agent) -> None:
+        """Register this pod's share agent, so that its counters join
+        ``hier_stats`` (the agent reaches the coordinator over the wire)."""
+        self.share_agent = agent
+
+    def hier_stats(self) -> Dict[str, object]:
+        """The hierarchy counters: the agent's, overlaid by the
+        coordinator's ledger (the coordinator wins), with the live hold
+        tokens; ``{}`` when neither is attached."""
+        out: Dict[str, object] = {}
+        if self.share_agent is not None:
+            out.update(self.share_agent.stats())
+        if self.hierarchy is not None:
+            out.update(self.hierarchy.stats())
+        if out:
+            out["hold_tokens"] = sum(self.share_holds().values())
+        return out
+
     # -- live rebalance (cluster.rebalance) ----------------------------------
     def _rebuild_moving_snap(self) -> None:
         """Rebuild the dispatch path's MOVING view from ``self._moving``.
@@ -1494,7 +1662,8 @@ class DefaultTokenService(TokenService):
 
         The namespace's leases are recalled: their registry entries drop
         (renewals answer MOVED) while their LEASED charge stays in the
-        window, so the exported sums carry it to the new owner."""
+        window, so the exported sums carry it to the new owner. So do its
+        flows' share holds."""
         with self._lock:
             cur = self._moving.get(namespace)
             if cur is not None and cur[0] != endpoint:
@@ -1511,6 +1680,11 @@ class DefaultTokenService(TokenService):
                 for lease in dead:
                     del self._leases[lease.lease_id]
                 self._lease_stats["revoked"] += len(dead)
+            # share holds likewise: the LEASED charge rides the window-sum
+            # export, and the registry drops (the destination's own agent
+            # re-tops the hold from its share on its next tick)
+            for fid in flows:
+                self._share_holds.pop(int(fid), None)
         # rev-7 push: recalled leases cut over within one round trip
         for lease in dead:
             self._emit_push(
@@ -1763,8 +1937,9 @@ class DefaultTokenService(TokenService):
         """Device→host capture of what a warm standby needs to resume
         counting: rule sources, slot assignments, every state plane, the
         param sketch and the engine epoch, as numpy copies under the
-        reference's keys and dtypes (the hierarchy tier's ``hier`` block is
-        a later slice). The planes are cloned on the device under the
+        reference's keys and dtypes, and the co-located coordinator's ledger
+        as the ``hier`` block when one is attached. The planes are cloned on
+        the device under the
         service lock and brought to the host after it drops, so the
         capture holds the lock for launches only, never for the copy."""
         fetch = _HostCopy()
@@ -1807,10 +1982,16 @@ class DefaultTokenService(TokenService):
                     for f in ParamState._fields
                 },
             }
+            # the hierarchy ledger piggyback (JSON; absent with no
+            # coordinator): a standby imports it into its own coordinator
+            hier = (self.hierarchy.export_doc()
+                    if self.hierarchy is not None else None)
         fetch.run()
         for key in ("flow", "occupy", "ns", "outcome", "shaping", "breaker",
                     "param"):
             state[key] = {f: fetch.get(h) for f, h in state[key].items()}
+        if hier is not None:
+            state["hier"] = hier
         return state
 
     def import_state(self, state: Dict[str, object]) -> None:
@@ -1943,6 +2124,11 @@ class DefaultTokenService(TokenService):
                         np.array(p_auth, bool), device=dev))
                 pst.starts.copy_(torch.as_tensor(np.array(p_s), device=dev))
                 self._epoch_ms = int(state["epoch_ms"])
+        # the hierarchy ledger: a standby with an attached (idle)
+        # coordinator inherits the primary's share map
+        hier_doc = state.get("hier")
+        if hier_doc is not None and self.hierarchy is not None:
+            self.hierarchy.import_doc(hier_doc)
 
     # -- warm-standby delta replication (ha.replication) ----------------------
     def replication_enable(self) -> None:
@@ -2049,7 +2235,7 @@ class DefaultTokenService(TokenService):
                 if self.param_config.slim_enabled:
                     # the every-tick document ships the slim twin's rows;
                     # fat rows ship in full snapshots, and with the rows a
-                    # MOVE import folded (param_fat, a later slice)
+                    # MOVE import folded (param_fat)
                     delta["param_slim"] = rows(pst.slim, param_slots)
                     if param_fat_slots:
                         delta["param_fat_fids"] = [
@@ -2059,6 +2245,10 @@ class DefaultTokenService(TokenService):
                                                      param_fat_slots)
                 else:
                     delta["param_counts"] = rows(pst.counts, param_slots)
+            if self.hierarchy is not None:
+                # the hierarchy ledger rides every tick as plain JSON: one
+                # entry per (global flow, pod)
+                delta["hier"] = self.hierarchy.export_doc()
         fetch.run()
         return {key: fetch.get(v) for key, v in delta.items()}
 
@@ -2177,6 +2367,11 @@ class DefaultTokenService(TokenService):
                 pst.slim_auth.fill_(True)
             for ws, new in starts.values():
                 ws.starts.copy_(new)
+        # the hierarchy ledger lands outside the service locks (the
+        # coordinator has its own), and only into an attached coordinator
+        hier_doc = delta.get("hier")
+        if hier_doc is not None and self.hierarchy is not None:
+            self.hierarchy.import_doc(hier_doc)
 
     # -- reads of the flow and outcome planes ---------------------------------
     def sketch_stats(self) -> Dict[str, object]:

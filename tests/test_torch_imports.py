@@ -4,7 +4,8 @@ imports every ``sentinel_tpu_torch`` module, then ``jax`` and
 door's library is built and loaded, and a door has served a frame; after
 a standby door has applied a REPL snapshot and been promoted; and after a
 door has served a namespace move (MOVE_BEGIN, MOVE_STATE, MOVE_COMMIT from
-the port's ``MoveCoordinator``). The subprocesses write their stat logs into
+the port's ``MoveCoordinator``); and after the asyncio door has served the
+token client's frames and a share agent's hierarchy frames. The subprocesses write their stat logs into
 the test's temporary directory."""
 
 import os
@@ -46,7 +47,9 @@ def test_port_modules_import_without_jax(tmp_path):
                 "trace.ring", "trace.spans", "trace.slo", "trace.blackbox",
                 "overload", "overload.admission", "native.build",
                 "native.lib", "ha", "ha.snapshot", "ha.replication",
-                "core.property", "metrics.stat_logger", "cluster.rebalance"):
+                "core.property", "metrics.stat_logger", "cluster.rebalance",
+                "cluster.hierarchy", "cluster.server", "cluster.client",
+                "cluster.shm_client"):
         assert f"sentinel_tpu_torch.{mod}" in names, mod
     code = (
         "import importlib, sys\n"
@@ -248,3 +251,63 @@ def test_port_sources_never_name_jax():
                     assert not mod.startswith(("jax", "sentinel_tpu.")), (
                         f, s)
                     assert mod != "sentinel_tpu", (f, s)
+
+
+_ASYNCIO_DOOR_SERVES = """
+import sys
+sys.path.insert(0, {repo!r})
+import numpy as np
+from sentinel_tpu_torch.cluster.client import TokenClient
+from sentinel_tpu_torch.cluster.hierarchy import (
+    GlobalBudgetCoordinator, GlobalFlowBudget, PodShareAgent,
+)
+from sentinel_tpu_torch.cluster.server import TokenServer
+from sentinel_tpu_torch.cluster.token_service import DefaultTokenService
+from sentinel_tpu_torch.engine import ClusterFlowRule, EngineConfig
+svc = DefaultTokenService(EngineConfig(max_flows=8, max_namespaces=2,
+                                       batch_size=64), device="cpu")
+svc.load_rules([ClusterFlowRule(1, 3.0)])
+svc.attach_hierarchy(GlobalBudgetCoordinator([GlobalFlowBudget(1, 3.0)]))
+server = TokenServer(svc, port=0, idle_ttl_s=None)
+server.start()
+
+
+class One:
+    def __init__(self, endpoints, timeout_ms, deadline_ms):
+        self.c = TokenClient(*endpoints[0], timeout_ms=10_000)
+
+    def share_op(self, *a, **k):
+        return self.c.share_op(*a, **k)
+
+    def demand_report(self, *a):
+        return self.c.demand_report(*a)
+
+    def close(self):
+        self.c.close()
+
+
+try:
+    client = TokenClient("127.0.0.1", server.port, timeout_ms=10_000)
+    st = client.request_batch_arrays(np.full(5, 1, np.int64))[0]
+    assert st.tolist() == [0, 0, 0, 1, 1], st
+    agent = PodShareAgent(svc, ["127.0.0.1:%d" % server.port], "pod-a", [1],
+                          client_cls=One)
+    agent.tick()
+    assert agent.shares() == {{1: 3}}, agent.shares()
+    agent.close()
+    client.close()
+finally:
+    server.stop()
+bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
+             or m == "sentinel_tpu" or m.startswith("sentinel_tpu."))
+assert not bad, bad
+"""
+
+
+def test_asyncio_door_and_clients_serve_without_jax(tmp_path):
+    out = subprocess.run(
+        [sys.executable, "-I", "-c", _ASYNCIO_DOOR_SERVES.format(repo=REPO)],
+        capture_output=True, text=True, timeout=300, cwd=REPO,
+        env=_env(tmp_path),
+    )
+    assert out.returncode == 0, out.stderr[-2000:]

@@ -64,6 +64,10 @@ from sentinel_tpu_torch.cluster.rebalance import (  # noqa: E402
     decode_move_state_blob,
     encode_move_state_blob,
 )
+from sentinel_tpu_torch.cluster.client import (  # noqa: E402
+    TokenClient as TTokenClient,
+)
+from sentinel_tpu_torch.cluster.server import TokenServer  # noqa: E402
 from sentinel_tpu_torch.cluster.server_native import (  # noqa: E402
     NativeTokenServer,
     native_available,
@@ -485,6 +489,95 @@ def test_move_across_packages(direction, cxx, clean_metrics, clocks):
             c.advance(170)
     src.abort_move("ns1")  # the source serves the namespace again
     assert not src.moving_namespaces()
+
+
+# -- the port's asyncio door as a move source and destination ----------------
+_DOORS = {"asyncio": TokenServer, "native": NativeTokenServer}
+
+
+@pytest.mark.parametrize("doors", ["asyncio-asyncio", "asyncio-native",
+                                   "native-asyncio"])
+def test_live_move_through_the_asyncio_door(doors, clean_metrics, clocks):
+    """The port's ``TokenServer`` as a move's source and destination (the
+    reference's own moves run through its asyncio door): a port
+    ``MoveCoordinator`` moves a namespace with a spent window while a
+    client of the destination is connected, so the destination's push hub
+    sends the import's rule-epoch push; the commit goes through, the
+    destination owns the window, and a stale client of the source is
+    redirected (the asyncio door names the new owner in the reply)."""
+    src_door, dst_door = doors.split("-")
+    if "native" in doors and not native_available():
+        pytest.skip("no native door")
+    fid = 101
+    svc_src = DefaultTokenService(_CFG, device="cpu")
+    svc_dst = DefaultTokenService(_CFG, device="cpu")
+    svc_src.load_namespace_rules("w1", [_rules(fid, 100.0, "w1")[1]])
+    srv_src = _DOORS[src_door](svc_src, host="127.0.0.1", port=0,
+                               idle_ttl_s=None)
+    srv_dst = _DOORS[dst_door](svc_dst, host="127.0.0.1", port=0,
+                               idle_ttl_s=None)
+    srv_src.start()
+    srv_dst.start()
+    src_ep = f"127.0.0.1:{srv_src.port}"
+    dst_ep = f"127.0.0.1:{srv_dst.port}"
+    watcher = TTokenClient("127.0.0.1", srv_dst.port, timeout_ms=5000)
+    c = TTokenClient("127.0.0.1", srv_src.port, timeout_ms=5000,
+                     namespace="w1")
+    try:
+        assert watcher.ping()
+        assert srv_dst.push_hub in svc_dst._push_hubs
+        for _ in range(5):
+            assert c.request_token(fid).ok
+        doc0 = svc_src.export_namespace_state("w1")
+        pub = ShardMapPublisher()
+        coord = MoveCoordinator(svc_src, self_endpoint=src_ep,
+                                publisher=pub)
+        assert coord.move_namespace("w1", dst_ep), coord.last_error
+        assert pub.current().endpoint_of["w1"] == dst_ep
+        deadline = time.monotonic() + 5.0
+        while not watcher.push_stats()["rule_epoch_invalidate"]:
+            assert time.monotonic() < deadline, "no rule-epoch push"
+            time.sleep(0.01)
+        assert srv_dst.push_hub.stats()["sent"]["rule_epoch_invalidate"] >= 1
+        r = c.request_token(fid)
+        assert r.status == TokenStatus.MOVED
+        assert r.remaining == pub.current().epoch
+        # the asyncio door ships the new owner as the reply's trailer
+        assert r.endpoint == (dst_ep if src_door == "asyncio" else "")
+        got = svc_dst.export_namespace_state("w1")
+        assert_docs_equal(doc0, got)
+        c2 = TTokenClient("127.0.0.1", srv_dst.port, timeout_ms=5000,
+                          namespace="w1")
+        try:
+            assert c2.request_token(fid).status == TokenStatus.OK
+        finally:
+            c2.close()
+        assert not srv_dst.move_target.status()["staged"]
+    finally:
+        c.close()
+        watcher.close()
+        srv_src.stop()
+        srv_dst.stop()
+
+
+def test_jax_coordinator_moves_into_the_asyncio_door(clean_metrics, clocks):
+    """A JAX ``MoveCoordinator`` moves a namespace of the seeded stream's
+    service into the port's asyncio door: the destination's document equals
+    the source's."""
+    src = JAX.make()
+    traffic([src], clocks, np.random.default_rng(SEED), rounds=3,
+            check=lambda kind, outs: None)
+    doc0 = src.export_namespace_state("ns1")
+    dst = PORT.make(rules=False)
+    server = TokenServer(dst, host="127.0.0.1", port=0, idle_ttl_s=None)
+    server.start()
+    try:
+        coord = JRB.MoveCoordinator(src, self_endpoint="src:1")
+        assert coord.move_namespace("ns1", f"127.0.0.1:{server.port}",
+                                    epoch=5), coord.last_error
+    finally:
+        server.stop()
+    assert_docs_equal(doc0, dst.export_namespace_state("ns1"))
 
 
 # -- two live port doors -----------------------------------------------------
