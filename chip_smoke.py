@@ -161,7 +161,31 @@ Builds the port's CUDA kernels from ``sentinel_tpu_torch/csrc`` (one
    asyncio door's closed loop (one client), shm and TCP pull RTTs, an agent
    tick, ``set_share_hold`` (and its lock hold), ``demand_rates`` and
    ``reconcile_once`` times;
-13. prints the timings, the card's name and power limit, one
+13. the SDK's ``entry()`` (``sentinel_tpu_torch.local``) with cluster-mode
+   rules answered by the card (``phase_sdk``, ``tests/torch_sdk_check.py``):
+   6,000 resources, each with a local flow rule (QPS, warm-up, pacing,
+   THREAD), every 6th in cluster mode on phase 3's flows 0-999, 256
+   cluster-mode param rules on phase 5's sketch, breakers on every 10th, an
+   inbound system rule and authority rules, traffic bounded-Zipf from 8
+   apps with Zipf parameter values and overlapping entries. 13a: 20,000
+   entries on a manual clock with the card service embedded
+   (``cluster_api.set_embedded_server``), then with its torch-ops twin from
+   the same clock: every verdict and every node's counters equal, one
+   decide launch per cluster flow check and one count-min launch per
+   cluster param check, every SDK dispatch free of synchronizing calls, and
+   no exception raised by the service (a proxy in this script records
+   them: the cluster branches would hide one behind the local rule); 13b:
+   8 threads on the system clock for 3 s, entry p50 / p99 by rule class
+   and entries/s, beside the same rules in local mode; 13c: phase 10's
+   drill primary (a child process) and a warm standby on the card behind
+   the port's ``FailoverTokenClient`` (``cluster_api.set_client``), 8
+   threads of ``entry`` on 16 cluster-mode resources, the primary
+   SIGKILLed mid-window: no exception leaves ``entry``, the client
+   converges on the promoted standby, over-admission on the metered flow
+   within the drill's budget, and with both doors dark the fallback
+   policy's BLOCK, PASS and THROTTLE answers and ``stats()`` held to what
+   the entries saw;
+14. prints the timings, the card's name and power limit, one
    ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
 
 Any failed check raises and exits non-zero. With no CUDA device, or run from
@@ -3044,13 +3068,11 @@ def hier_drill(torch, dev, flows) -> dict:
         srv_a.start()
         srv_b.start()
         ep = f"127.0.0.1:{srv_a.port}"
-        factory = HC.single_endpoint(TokenClient)
+        # the agents' default client: the port's FailoverTokenClient
         ag_a = PodShareAgent(svc_a, [ep], "pod-a", budgets, tick_ms=100,
-                             timeout_ms=5000, deadline_ms=5000,
-                             client_cls=factory)
+                             timeout_ms=5000, deadline_ms=5000)
         ag_b = PodShareAgent(svc_b, [ep], "pod-b", budgets, tick_ms=100,
-                             timeout_ms=5000, deadline_ms=5000,
-                             client_cls=factory)
+                             timeout_ms=5000, deadline_ms=5000)
         agents += [ag_a, ag_b]
         cl_a = TokenClient("127.0.0.1", srv_a.port, timeout_ms=60_000)
         cl_b = TokenClient("127.0.0.1", srv_b.port, timeout_ms=60_000)
@@ -3308,6 +3330,552 @@ def hier_drill(torch, dev, flows) -> dict:
     return out
 
 
+# --- phase 13: the SDK's entry() with cluster-mode rules ----------------------
+SDK_RESOURCES = 6000  # the local engine's cap on slot chains
+SDK_ENTRIES = 20_000  # 13a's seeded stream, on the manual clock
+SDK_SEED = 131
+SDK_THREADS = 8
+SDK_SECONDS = 3.0  # 13b's timed runs on the system clock, each
+SDK_DRILL_FLOWS = 16  # 13c's cluster-mode resources
+SDK_DRILL_COUNT = 20.0  # their local rules' count, and the fallback's
+SDK_DRILL_METERED_SHARE = 0.8  # of 13c's entries up to the dark doors
+SDK_DRILL_AFTER_KILL_S = 2.5  # 13c runs on until the standby blocks it
+SDK_DARK_S = 0.45  # 13c's entries with both doors dark: within a bucket
+
+
+class Recorded:
+    """Stands in for the token service that ``cluster_api`` hands the
+    cluster branches: counts every call and records every exception the
+    service raises before passing it on (the branches catch it and fall
+    back to the local rule, which would hide a failed kernel)."""
+
+    def __init__(self, target):
+        self.target = target
+        self.calls = {"request_token": 0, "request_params_token": 0}
+        self.errors = []
+
+    def _call(self, name, *a):
+        self.calls[name] += 1
+        try:
+            return getattr(self.target, name)(*a)
+        except Exception as exc:
+            self.errors.append(f"{name}{a}: {exc!r}")
+            raise
+
+    def request_token(self, flow_id, acquire=1, prioritized=False):
+        return self._call("request_token", flow_id, acquire, prioritized)
+
+    def request_params_token(self, flow_id, acquire, param_hashes):
+        return self._call("request_params_token", flow_id, acquire,
+                          param_hashes)
+
+    def close(self):
+        self.target.close()
+
+
+def sdk_service(dev, twin=False):
+    """Phase 3's flow configuration and 256 param rules at ``ParamConfig()``
+    (counts 1-3 a value, so that hot values block), on the kernels or, with
+    ``twin``, on the torch-ops cores."""
+    import torch_param_check as PC
+
+    from sentinel_tpu_torch.cluster.token_service import (
+        ClusterParamFlowRule,
+        DefaultTokenService,
+    )
+    from sentinel_tpu_torch.engine import (
+        ClusterFlowRule,
+        EngineConfig,
+        ThresholdMode,
+    )
+    from sentinel_tpu_torch.engine.param import ParamConfig
+
+    cfg = EngineConfig(max_flows=F, max_namespaces=NS, batch_size=SIZES[-1],
+                       decide_impl="xla" if twin else "auto")
+    svc = DefaultTokenService(
+        cfg, param_config=ParamConfig(impl="jax" if twin else "auto"),
+        device=dev)
+    svc.load_rules(service_rules(ClusterFlowRule, ThresholdMode),
+                   ns_max_qps=1e9)
+    specs = PC.service_rule_specs(256, np.random.default_rng(41))
+    svc.load_param_rules([ClusterParamFlowRule(s.flow_id, 1.0 + k % 3)
+                          for k, s in enumerate(specs)])
+    svc.warmup()
+    return svc, [s.flow_id for s in specs]
+
+
+def phase_sdk(torch, dev):
+    """Phase 13: ``sentinel_tpu_torch.local.entry`` with cluster-mode rules
+    answered by the card. 13a: the seeded SDK stream on a manual clock with
+    the card service embedded, then with the torch-ops twin, every verdict
+    and node counter equal, one decide launch per cluster flow check and
+    one count-min launch per cluster param check, every SDK dispatch free
+    of synchronizing calls. 13b: 8 threads on the system clock, entry
+    latency by rule class, against the same rules in local mode. 13c: the
+    failover client across phase 10's primary and a warm standby (SIGKILL,
+    promotion, both doors dark)."""
+    import importlib
+    import shutil
+
+    import torch_sdk_check as SDK
+
+    from sentinel_tpu_torch.cluster import api as cluster_api
+    from sentinel_tpu_torch.core import clock
+    from sentinel_tpu_torch.ops import cms_cuda
+    from sentinel_tpu_torch.ops import decide_cuda as K
+
+    L = importlib.import_module("sentinel_tpu_torch.local")
+    sph_mod = importlib.import_module("sentinel_tpu_torch.local.sph")
+    t_phase = time.perf_counter()
+    out = {}
+    snap_root = os.path.join(HERE, "sentinel_tpu_torch", "build",
+                             "sdk_snapshots")
+    shutil.rmtree(snap_root, ignore_errors=True)
+    drill_flows = door_lease_flows(SDK_DRILL_FLOWS)
+    # 13c's primary builds and warms up in its own process beside 13a/13b
+    ctx = multiprocessing.get_context("spawn")
+    pipe, child_end = ctx.Pipe()
+    child = ctx.Process(target=ha_drill_primary,
+                        args=(child_end, drill_flows[0], str(dev), F,
+                              snap_root), daemon=True)
+    child.start()
+    # a minute boundary two minutes back: bucket-aligned as in every run,
+    # so that 13a's verdicts are the same in every run and rehearsal, and
+    # behind the system clock that 13b then gives the same service
+    t0_ms = int(time.time() * 1000) // 60_000 * 60_000 - 120_000
+    mc = clock.ManualClock(t0_ms)
+    prev = clock.set_clock(mc)
+    try:
+        card, param_flows = sdk_service(dev)
+        twin, _ = sdk_service(dev, twin=True)
+        lay = SDK.layout(SDK_RESOURCES, range(1000), param_flows)
+        steps = SDK.stream(np.random.default_rng(SDK_SEED), lay, SDK_ENTRIES)
+
+        # --- 13a: lockstep, card then twin from the same clock -----------
+        dispatch = card.dispatch_batch_arrays
+        checked = [0]
+
+        def checked_dispatch(ids, counts=None, prios=None):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                mat = dispatch(ids, counts, prios)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            checked[0] += 1
+            return mat
+
+        runs = {}
+        for name, svc in (("card", card), ("twin", twin)):
+            L.reset_for_tests()
+            cluster_api.reset_for_tests()
+            mc.set_ms(t0_ms)
+            rec = Recorded(svc)
+            cluster_api.set_embedded_server(rec)
+            SDK.load_rules(L, lay)
+            torch.cuda.synchronize()
+            K.LAUNCHES.update(dict.fromkeys(K.LAUNCHES, 0))
+            cms_cuda.LAUNCHES.update(dict.fromkeys(cms_cuda.LAUNCHES, 0))
+            if name == "card":
+                card.dispatch_batch_arrays = checked_dispatch
+            t0 = time.perf_counter()
+            try:
+                verdicts = SDK.drive(L, sph_mod, steps, mc.now_ms,
+                                     mc.advance)
+            finally:
+                if name == "card":
+                    del card.dispatch_batch_arrays
+            runs[name] = dict(
+                verdicts=verdicts,
+                counters=SDK.node_counters(L.chain, L.context, mc.now_ms()),
+                calls=dict(rec.calls), errors=list(rec.errors),
+                decide=K.LAUNCHES["decide_rows"],
+                cms=cms_cuda.LAUNCHES["cms_decide_update"],
+                wall_s=time.perf_counter() - t0, end_ms=mc.now_ms())
+        a, b = runs["card"], runs["twin"]
+        errors = a["errors"] + b["errors"]
+        if errors:
+            raise AssertionError(f"sdk: the service raised: {errors[:3]}")
+        first = next((k for k, (x, y) in enumerate(zip(a["verdicts"],
+                                                       b["verdicts"]))
+                      if x != y), None)
+        if first is not None or len(a["verdicts"]) != SDK_ENTRIES:
+            raise AssertionError(
+                f"sdk: verdict {first} differs from the twin's: "
+                f"{a['verdicts'][first]} != {b['verdicts'][first]}")
+        bad = SDK.diff(a["counters"], b["counters"])
+        if bad or a["end_ms"] != b["end_ms"]:
+            raise AssertionError(f"sdk: node counters differ: {bad}")
+        flow_checks = a["calls"]["request_token"]
+        param_checks = a["calls"]["request_params_token"]
+        if (a["decide"] != flow_checks or checked[0] != flow_checks
+                or a["cms"] != param_checks or b["decide"] or b["cms"]
+                or b["calls"] != a["calls"]):
+            raise AssertionError(
+                f"sdk: launches {a['decide']} decide / {a['cms']} count-min "
+                f"(twin {b['decide']} / {b['cms']}) for {flow_checks} flow "
+                f"and {param_checks} param checks, {checked[0]} checked "
+                f"dispatches")
+        kinds = {}
+        for v in a["verdicts"]:
+            k = v if v == "pass" else v[0]
+            kinds[k] = kinds.get(k, 0) + 1
+        need = {"pass", "FlowException", "ParamFlowException",
+                "DegradeException", "SystemBlockException",
+                "AuthorityException"}
+        if not need <= set(kinds) or flow_checks < 1000 or param_checks < 100:
+            raise AssertionError(f"sdk: the stream reached too little: "
+                                 f"{kinds}, {a['calls']}")
+        out["lockstep"] = dict(
+            entries=SDK_ENTRIES, resources=SDK_RESOURCES, verdicts=kinds,
+            nodes=len(a["counters"]), flow_checks=flow_checks,
+            param_checks=param_checks, decide_launches=a["decide"],
+            cms_launches=a["cms"], sync_free_dispatches=checked[0],
+            engine_ms=a["end_ms"] - t0_ms, card_wall_s=a["wall_s"],
+            twin_wall_s=b["wall_s"])
+        log(f"sdk 13a: {SDK_ENTRIES} entries over {SDK_RESOURCES} resources "
+            f"({kinds}) equal to the twin in every verdict and in "
+            f"{len(a['counters'])} nodes' counters; {a['decide']} decide "
+            f"launches for {flow_checks} cluster flow checks (each dispatch "
+            f"sync-free), {a['cms']} count-min launches for {param_checks} "
+            f"cluster param checks; {a['wall_s']:.1f} s on the card, "
+            f"{b['wall_s']:.1f} s on the twin")
+
+        # --- 13b: timed, 8 threads on the system clock ------------------
+        clock.set_clock(clock.SystemClock())
+        streams = [SDK.stream(np.random.default_rng(1000 + t), lay, 20_000)
+                   for t in range(SDK_THREADS)]
+        out["timed"] = {}
+        for mode in ("cluster", "local"):
+            L.reset_for_tests()
+            cluster_api.reset_for_tests()
+            rec = Recorded(card)
+            cluster_api.set_embedded_server(rec)
+            SDK.load_rules(L, lay, cluster=mode == "cluster")
+            out["timed"][mode] = sdk_timed(L, sph_mod, SDK, lay, streams)
+            if rec.errors:
+                raise AssertionError(f"sdk 13b: the service raised: "
+                                     f"{rec.errors[:3]}")
+            out["timed"][mode]["service_calls"] = dict(rec.calls)
+        L.reset_for_tests()
+        cluster_api.reset_for_tests()
+        for mode, t in out["timed"].items():
+            log(f"sdk 13b ({mode} rules, {SDK_THREADS} threads, "
+                f"{SDK_SECONDS} s): {t['entries_per_s']:.0f} entries/s; "
+                f"entry p50 / p99 ms " + "; ".join(
+                    f"{c} {q['p50']:.4f} / {q['p99']:.4f} (n {q['n']})"
+                    for c, q in t["entry_ms"].items() if q["n"]))
+
+        # --- 13c: the failover client across a warm standby --------------
+        out["failover"] = sdk_failover(dev, pipe, child, drill_flows,
+                                       snap_root, L)
+    finally:
+        clock.set_clock(prev)
+        L.reset_for_tests()
+        cluster_api.reset_for_tests()
+        if child.is_alive():
+            child.kill()
+        child.join(10)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"sdk phase: {out['phase_s']:.1f} s ({gpu_identity()})")
+    return out
+
+
+def sdk_class(lay, i: int) -> str:
+    if i in lay["cluster"]:
+        return "cluster_flow"
+    if i in lay["param"]:
+        return "cluster_param"
+    return "local"
+
+
+def sdk_timed(L, sph_mod, SDK, lay, streams) -> dict:
+    """13b: ``SDK_THREADS`` threads each drive their own seeded stream
+    (``streams``) through ``async_entry`` on the system clock for
+    ``SDK_SECONDS``; entry
+    latency by the resource's class, entries a second, and any exception
+    other than a ``BlockException``."""
+    from sentinel_tpu_torch.core import clock
+
+    lats = [[] for _ in range(SDK_THREADS)]
+    counts = [0] * SDK_THREADS
+    errors = []
+    start = threading.Barrier(SDK_THREADS + 1)
+
+    def work(t):
+        start.wait()
+        try:
+            v = SDK.drive(L, sph_mod, streams[t], clock.now_ms, lat=lats[t],
+                          until=time.perf_counter() + SDK_SECONDS)
+            counts[t] = len(v)
+        except Exception as exc:  # reported, and the phase fails
+            errors.append(repr(exc))
+
+    threads = [threading.Thread(target=work, args=(t,), daemon=True)
+               for t in range(SDK_THREADS)]
+    for th in threads:
+        th.start()
+    start.wait()
+    t0 = time.perf_counter()
+    for th in threads:
+        th.join(SDK_SECONDS + 120)
+    wall = time.perf_counter() - t0
+    if errors or any(th.is_alive() for th in threads):
+        raise AssertionError(f"sdk 13b: {errors[:3]}")
+    by = {"local": [], "cluster_flow": [], "cluster_param": []}
+    for ls in lats:
+        for i, s in ls:
+            by[sdk_class(lay, i)].append(s * 1e3)
+    return dict(entries=sum(counts), wall_s=wall,
+                entries_per_s=sum(counts) / wall,
+                entry_ms={c: quantiles(v) for c, v in by.items()})
+
+
+def sdk_failover(dev, pipe, child, drill_flows, snap_root, L) -> dict:
+    """13c: ``FailoverTokenClient([primary, standby])`` installed with
+    ``cluster_api.set_client``; 8 threads of ``entry`` on 16 cluster-mode
+    resources, most entries (80%) on the metered flow of phase 10's drill
+    (300 tokens a 5 s window). SIGKILL the primary once it admitted half
+    the window and two more deltas landed; after the client converged on
+    the promoted standby, stop the standby and hold the fallback policy to
+    its rules: BLOCK blocks, PASS passes, a flow without a rule is throttled
+    at its local rule's count (the policy's THROTTLE default), and
+    ``stats()`` equals what the entries saw."""
+    from sentinel_tpu_torch.cluster import api as cluster_api
+    from sentinel_tpu_torch.cluster.server_native import NativeTokenServer
+    from sentinel_tpu_torch.engine.decide import TokenStatus
+    from sentinel_tpu_torch.ha import (
+        FailoverTokenClient,
+        FallbackAction,
+        FallbackRule,
+        LocalFallbackPolicy,
+    )
+
+    if not pipe.poll(180):
+        raise AssertionError("sdk 13c: the child primary never got ready")
+    if pipe.recv() != "ready":
+        raise AssertionError("sdk 13c: the child primary failed")
+    window_tokens = int(HA_DRILL_QPS * HA_DRILL_BUCKET_MS * 10 / 1000)
+    svc = ha_service(dev, bucket_ms=HA_DRILL_BUCKET_MS)
+    standby = NativeTokenServer(svc, port=0, idle_ttl_s=None,
+                                standby_of="primary",
+                                promote_after_ms=HA_PROMOTE_AFTER_MS,
+                                snapshot_dir=snap_root,
+                                snapshot_period_s=3600.0)
+    standby.start()
+    metered, blocked_fid, passed_fid = drill_flows[:3]
+    names = {fid: f"drill{k}" for k, fid in enumerate(drill_flows)}
+    fc = None
+    try:
+        if not svc.current_rules():
+            raise AssertionError("sdk 13c: the standby restored nothing")
+        pipe.send(standby.port)
+        if not pipe.poll(60):
+            raise AssertionError("sdk 13c: the child's door never started")
+        primary_port = pipe.recv()
+        wait_for(lambda: standby.applier.status()["deltasApplied"] >= 2,
+                 "deltas after the file bootstrap", 30.0)
+        policy_rules = [FallbackRule(metered, FallbackAction.BLOCK),
+                        FallbackRule(blocked_fid, FallbackAction.BLOCK),
+                        FallbackRule(passed_fid, FallbackAction.PASS)]
+        policy = LocalFallbackPolicy(
+            policy_rules, default_action=FallbackAction.THROTTLE,
+            default_count=SDK_DRILL_COUNT)
+        fc = FailoverTokenClient(
+            [("127.0.0.1", primary_port), ("127.0.0.1", standby.port)],
+            timeout_ms=200, failure_threshold=1, deadline_ms=500,
+            fallback=policy)
+        # every member answer, by member: (t, flow, status)
+        answers = ([], [])
+        member_errors = []
+        for idx, member in enumerate(fc._members):
+            real = member.client.request_token
+
+            def recorded(flow_id, acquire=1, prioritized=False, _i=idx,
+                         _real=real):
+                try:
+                    r = _real(flow_id, acquire, prioritized)
+                except Exception as exc:
+                    member_errors.append(repr(exc))
+                    raise
+                answers[_i].append((time.monotonic(), int(flow_id),
+                                    int(r.status)))
+                return r
+
+            member.client.request_token = recorded
+        rec = Recorded(fc)
+        cluster_api.set_client(rec)
+        L.FlowRuleManager.load_rules([L.FlowRule(
+            resource=names[fid], count=SDK_DRILL_COUNT, cluster_mode=True,
+            cluster_config={"flow_id": fid,
+                            "fallback_to_local_when_fail": True})
+            for fid in drill_flows])
+
+        seen = []  # (t, flow, passed) of every entry
+        errors = []
+        stop = threading.Event()
+
+        def work(t, share):
+            rng = np.random.default_rng(500 + t)
+            while not stop.is_set():
+                if rng.random() < share:
+                    fid = metered
+                else:
+                    fid = drill_flows[1 + int(rng.integers(
+                        len(drill_flows) - 1))]
+                try:
+                    with L.entry(names[fid]):
+                        ok = True
+                except L.BlockException:
+                    ok = False
+                except Exception as exc:  # the gate: none may leave entry
+                    errors.append(repr(exc))
+                    return
+                seen.append((time.monotonic(), fid, ok))
+
+        def run_threads(share):
+            stop.clear()
+            ths = [threading.Thread(target=work, args=(t, share),
+                                    daemon=True)
+                   for t in range(SDK_THREADS)]
+            for th in ths:
+                th.start()
+            return ths
+
+        def join(ths):
+            stop.set()
+            for th in ths:
+                th.join(10)
+            if any(th.is_alive() for th in ths):
+                raise AssertionError("sdk 13c: an entry thread hung")
+
+        def admitted(i):
+            return sum(1 for _, f, s in answers[i]
+                       if f == metered and s == int(TokenStatus.OK))
+
+        ths = run_threads(SDK_DRILL_METERED_SHARE)
+        t_fill = time.monotonic()
+        wait_for(lambda: admitted(0) >= window_tokens // 2,
+                 "half the metered window through the primary", 10.0)
+        fill_s = time.monotonic() - t_fill
+        base = standby.applier.status()["deltasApplied"]
+        wait_for(lambda: standby.applier.status()["deltasApplied"]
+                 >= base + 2, "two deltas under load", 10.0)
+        fill = admitted(0)
+        fill_rate = fill / max(time.monotonic() - t_fill, 1e-6)
+        child.kill()  # SIGKILL: no final ship, no shutdown hook
+        t_kill = time.monotonic()
+        child.join(10)
+
+        def served_by_standby():
+            return [t for t, _, s in answers[1]
+                    if s not in (int(TokenStatus.STANDBY),
+                                 int(TokenStatus.FAIL))]
+
+        wait_for(lambda: served_by_standby(), "the standby's first answer",
+                 HA_PROMOTE_AFTER_MS / 1000.0 + 5.0)
+        converge_ms = (served_by_standby()[0] - t_kill) * 1e3
+        # run on until the standby blocks the metered flow (the window is
+        # spent) or SDK_DRILL_AFTER_KILL_S pass
+        def standby_blocks():
+            return sum(1 for _, f, s in answers[1]
+                       if f == metered and s == int(TokenStatus.BLOCKED))
+
+        wait_for(lambda: standby_blocks()
+                 or time.monotonic() - t_kill > SDK_DRILL_AFTER_KILL_S,
+                 "the standby's metered verdicts", 10.0)
+        join(ths)
+        if fc.active_endpoint.port != standby.port:
+            raise AssertionError("sdk 13c: the client did not converge on "
+                                 "the standby")
+        post = admitted(1)
+        first_ok = min((t for t, f, s in answers[0] + answers[1]
+                        if f == metered and s == int(TokenStatus.OK)),
+                       default=t_fill)
+        last_ok = max((t for t, f, s in answers[0] + answers[1]
+                       if f == metered and s == int(TokenStatus.OK)),
+                      default=t_fill)
+        span_s = last_ok - first_ok
+        before_kill = admitted(0)
+        total = before_kill + post
+        over = max(0, total - window_tokens)
+        budget = int(fill_rate * HA_INTERVAL_MS / 1000.0) + 1
+        promotion_fallbacks = dict(policy.stats())
+
+        # --- both doors dark: the fallback policy decides ----------------
+        standby.stop()
+        before = dict(policy.stats())
+        # fresh throttle windows (a reload resets them, not the stats): the
+        # promotion's throttled answers must not count against them
+        policy.load_rules(policy_rules)
+        n_seen = len(seen)
+        ths = run_threads(1.0 / len(drill_flows))
+        time.sleep(SDK_DARK_S)
+        join(ths)
+        dark = seen[n_seen:]
+        after = dict(policy.stats())
+        by_flow = {}
+        for _, fid, ok in dark:
+            p, bl = by_flow.get(fid, (0, 0))
+            by_flow[fid] = (p + ok, bl + (not ok))
+        dark_passed = sum(p for p, _ in by_flow.values())
+        dark_blocked = sum(bl for _, bl in by_flow.values())
+        fails = []
+        if errors or member_errors or rec.errors:
+            fails.append(f"exceptions: {errors[:2]} {member_errors[:2]} "
+                         f"{rec.errors[:2]}")
+        if over > budget:
+            fails.append(f"over-admitted {over} > {budget}")
+        if span_s * 1e3 >= HA_DRILL_BUCKET_MS * 10:
+            fails.append(f"the metered admissions spanned {span_s:.2f} s, "
+                         f"more than a window")
+        if by_flow.get(blocked_fid, (1, 0))[0] or \
+                not by_flow.get(blocked_fid, (0, 0))[1]:
+            fails.append(f"the BLOCK flow: {by_flow.get(blocked_fid)}")
+        if by_flow.get(passed_fid, (0, 1))[1] or \
+                not by_flow.get(passed_fid, (0, 0))[0]:
+            fails.append(f"the PASS flow: {by_flow.get(passed_fid)}")
+        throttled = {fid: by_flow.get(fid, (0, 0))
+                     for fid in drill_flows[3:]}
+        for fid, (p, bl) in throttled.items():
+            if p != min(int(SDK_DRILL_COUNT), p + bl):
+                fails.append(f"flow {fid} without a fallback rule passed "
+                             f"{p} of {p + bl}, not its local count "
+                             f"{SDK_DRILL_COUNT:.0f}")
+        if (after["passed"] - before["passed"] != dark_passed
+                or after["blocked"] - before["blocked"] != dark_blocked):
+            fails.append(f"policy stats {before} -> {after} against the "
+                         f"entries' {dark_passed} passed / {dark_blocked} "
+                         f"blocked")
+        res = dict(
+            window_tokens=window_tokens, fill_s=fill_s,
+            fill_rate_tokens_per_s=fill_rate,
+            admitted_before_kill=before_kill, admitted_after_kill=post,
+            over_admission=over, budget=budget, span_s=span_s,
+            kill_to_first_standby_answer_ms=converge_ms,
+            standby_metered_blocks=standby_blocks(),
+            entries=len(seen), fallback_during_promotion=promotion_fallbacks,
+            dark=dict(entries=len(dark), passed=dark_passed,
+                      blocked=dark_blocked,
+                      by_flow={str(k): v for k, v in by_flow.items()}),
+            policy_stats=after)
+        log(f"sdk 13c: {len(seen)} entries; {before_kill} metered admissions "
+            f"before the SIGKILL, {post} after, over a {window_tokens}-token "
+            f"window: over-admission {over} against a budget of {budget} "
+            f"({fill_rate:.0f} tokens/s; the standby blocked "
+            f"{standby_blocks()} metered entries); SIGKILL to the first "
+            f"entry the "
+            f"standby served {converge_ms:.1f} ms; answered by the fallback "
+            f"policy through the promotion {promotion_fallbacks}, with both "
+            f"doors dark {dark_passed} passed / {dark_blocked} blocked")
+        if fails:
+            raise AssertionError("sdk 13c: " + "; ".join(fails))
+        return res
+    finally:
+        if fc is not None:
+            cluster_api.reset_for_tests()
+        standby.stop()
+
+
 def window_less_bucket_ms(svc) -> int:
     """A service's window less one bucket, in ms."""
     c = svc.config
@@ -3490,6 +4058,7 @@ def main() -> int:
     ha = phase_ha(torch, dev)
     move = phase_move(torch, dev)
     hier = phase_hier(torch, dev)
+    sdk = phase_sdk(torch, dev)
     service[SIZES[-1]].update(profiled_pulls())
     for sketch, kernels_a_call in profiled_params().items():
         param_service[sketch]["profiled"] = kernels_a_call
@@ -3517,6 +4086,7 @@ def main() -> int:
         "launches_move_phase": move["move"]["destination_lockstep"][
             "decide_launches"],
         "launches_hier_phase": hier["lockstep"]["decide_launches"],
+        "launches_sdk_phase": sdk["lockstep"]["decide_launches"],
     }]
     for sketch, name, line in (("cms", "cms_decide_update", 49),
                                ("salsa", "salsa_decide_update", 37)):
@@ -3545,6 +4115,8 @@ def main() -> int:
                 if sketch == "cms" else move["salsa"]["launches"]),
             "launches_hier_phase": (hier["lockstep"]["param_launches"]
                                     if sketch == "cms" else 0),
+            "launches_sdk_phase": (sdk["lockstep"]["cms_launches"]
+                                   if sketch == "cms" else 0),
             "parity_steps": param_parity[sketch][1],
             "by_n": {str(n): v for n, v in param_timing[sketch].items()},
         })
@@ -3573,6 +4145,7 @@ def main() -> int:
                     "ha": ha,
                     "move": move,
                     "hier": hier,
+                    "sdk": sdk,
                     "gpu": ident}))
     log(ident)
     log(json.dumps({"kernels": kernels}))

@@ -94,11 +94,15 @@ def reset_client_metrics_for_tests() -> None:
 
 
 class _Pending:
-    __slots__ = ("event", "response")
+    # ``conn``: the connection the request went out on (a socket, or the
+    # shm client's ring); only that connection's teardown may wake the
+    # waiter without a response
+    __slots__ = ("event", "response", "conn")
 
     def __init__(self):
         self.event = threading.Event()
         self.response: Optional[P.FlowResponse] = None
+        self.conn = None
 
 
 # client-side lease safety margin: stop admitting from a lease at 90% of
@@ -297,11 +301,15 @@ class TokenClient(TokenService):
         except OSError:
             pass
         # Fail waiters so they fall back immediately instead of timing out —
-        # but only when the active connection died; a stale reader thread's
-        # exit must not abort in-flight requests on a newer connection.
+        # but only those whose request went out on THIS connection. A
+        # request that reconnected while this teardown ran (between the
+        # clear of ``_sock`` above and this loop) waits on the new
+        # connection and must not be woken without its response (the
+        # reference wakes every waiter here).
         if was_active:
             for pending in list(self._pending.values()):
-                pending.event.set()
+                if pending.conn is sock:
+                    pending.event.set()
 
     def close(self) -> None:
         try:
@@ -697,7 +705,7 @@ class TokenClient(TokenService):
             frame = P.encode_lease_request(
                 xid, msg_type, flow_id, want, lease_id=lease_id, used=used
             )
-            if not self._send(frame):
+            if not self._send(frame, pending=pending):
                 return None
             self._count_rpc()
             if not pending.event.wait(self.timeout_ms / 1000.0):
@@ -837,7 +845,7 @@ class TokenClient(TokenService):
         self._pending[xid] = pending
         try:
             frame = P.encode_demand_report(xid, pod_id, entries)
-            if not self._send(frame):
+            if not self._send(frame, pending=pending):
                 return None
             self._count_rpc()
             if not pending.event.wait(self.timeout_ms / 1000.0):
@@ -1001,7 +1009,7 @@ class TokenClient(TokenService):
                     # serving a verdict this client stopped waiting for
                     deadline_ms=max(1, int(budget * 1000)),
                 )
-                if not self._send(frame):
+                if not self._send(frame, pending=pending):
                     return None
                 self._count_rpc()
             with self._lease_lock:
@@ -1079,7 +1087,7 @@ class TokenClient(TokenService):
         pending = _Pending()
         self._pending[req.xid] = pending
         try:
-            if not self._send(P.encode_request(req)):
+            if not self._send(P.encode_request(req), pending=pending):
                 return None
             self._count_rpc()
             if not pending.event.wait(self.timeout_ms / 1000.0):
@@ -1088,7 +1096,8 @@ class TokenClient(TokenService):
         finally:
             self._pending.pop(req.xid, None)
 
-    def _send(self, data: bytes, piggyback: bool = True) -> bool:
+    def _send(self, data: bytes, piggyback: bool = True,
+              pending: Optional[_Pending] = None) -> bool:
         if piggyback and self._outcome_buf:
             # rev-6 piggyback: buffered completion outcomes ride ahead of
             # this frame in the SAME sendall — one syscall, zero extra
@@ -1101,6 +1110,8 @@ class TokenClient(TokenService):
         sock = self._sock
         if sock is None:
             return False
+        if pending is not None:
+            pending.conn = sock
         if chaos.ARMED:
             if chaos.should("conn_reset"):  # RST mid-request
                 self._drop_connection(sock)

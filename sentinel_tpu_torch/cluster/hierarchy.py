@@ -493,14 +493,13 @@ class PodShareAgent:
     runs per request, and the tick's wire work is a handful of frames
     every ``tick_ms``.
 
-    ``endpoints`` is the coordinator endpoint list (primary + standbys).
-    ``client_cls(endpoints, timeout_ms=, deadline_ms=)`` builds the client
-    the agent ticks through: it needs ``share_op``, ``demand_report`` and
-    ``close``. The reference's default, its failover client, walks the
-    endpoint list; that client is not ported yet (ROADMAP item 11), so
-    ``client_cls=None`` raises ``NotImplementedError``. ``update_endpoints``
-    follows the shard map's ``global_flows`` section, epoch-fenced like
-    every other route."""
+    ``endpoints`` is the coordinator endpoint list (primary + standbys);
+    the agent walks it via :class:`~sentinel_tpu_torch.ha.failover.
+    FailoverTokenClient` share ops, so coordinator failover needs no agent
+    config change. ``client_cls(endpoints, timeout_ms=, deadline_ms=)``
+    replaces that client: it needs ``share_op``, ``demand_report`` and
+    ``close``. ``update_endpoints`` follows the shard map's
+    ``global_flows`` section, epoch-fenced like every other route."""
 
     def __init__(
         self,
@@ -514,11 +513,8 @@ class PodShareAgent:
         client_cls=None,
     ):
         if client_cls is None:
-            raise NotImplementedError(
-                "PodShareAgent's default client, the failover token client, "
-                "is not ported to sentinel_tpu_torch yet (ROADMAP item 11): "
-                "pass client_cls"
-            )
+            from sentinel_tpu_torch.ha.failover import FailoverTokenClient
+            client_cls = FailoverTokenClient
         self._client_cls = client_cls
         self.service = service
         self.pod_id = str(pod_id)

@@ -116,14 +116,17 @@ class ShmTokenClient(TokenClient):
 
     def _drop_ring(self, ring: ShmRingClient) -> None:
         """Detach (never destroy — the reader owns the native handle's
-        final close) and fail waiters so they fall back immediately."""
+        final close) and fail this ring's waiters so they fall back
+        immediately; a request that already reattached waits on the new
+        ring (the TCP client's ``_drop_connection``)."""
         with self._state_lock:
             was_active = self._ring is ring
             if was_active:
                 self._ring = None
         if was_active:
             for pending in list(self._pending.values()):
-                pending.event.set()
+                if pending.conn is ring:
+                    pending.event.set()
 
     def close(self) -> None:
         try:
@@ -210,7 +213,8 @@ class ShmTokenClient(TokenClient):
             ok = self._send(f, piggyback=False) and ok
         return ok
 
-    def _send(self, data: bytes, piggyback: bool = True) -> bool:
+    def _send(self, data: bytes, piggyback: bool = True,
+              pending=None) -> bool:
         if piggyback and self._outcome_buf:
             # publish buffered outcomes as their own slots ahead of this
             # request frame (no prefix-concatenation on a ring transport)
@@ -220,6 +224,8 @@ class ShmTokenClient(TokenClient):
         ring = self._ring
         if ring is None:
             return False
+        if pending is not None:
+            pending.conn = ring
         if chaos.ARMED:
             if chaos.should("conn_reset"):  # segment death mid-request
                 self._drop_ring(ring)

@@ -1,6 +1,12 @@
-"""Cluster high availability: the state snapshot file and warm-standby
-replication (the port's half of ``sentinel_tpu/ha``).
+"""Cluster high availability (the port's copy of ``sentinel_tpu/ha``):
+failover client, local fallback, snapshots and replication.
 
+- :mod:`~sentinel_tpu_torch.ha.endpoints` — per-endpoint health with
+  exponential backoff + jitter and a half-open circuit breaker.
+- :mod:`~sentinel_tpu_torch.ha.failover` — :class:`FailoverTokenClient`, an
+  ordered-endpoint-list ``TokenService`` that evicts dead primaries.
+- :mod:`~sentinel_tpu_torch.ha.fallback` — per-rule local degradation
+  (pass / block / local-window throttle) riding ``local.flow`` controllers.
 - :mod:`~sentinel_tpu_torch.ha.snapshot` — device→host state snapshot and
   restore, the artifact directory and the periodic :class:`SnapshotManager`.
 - :mod:`~sentinel_tpu_torch.ha.replication` — warm-standby delta streaming:
@@ -11,13 +17,19 @@ replication (the port's half of ``sentinel_tpu/ha``).
 The documents and frames are the reference's byte for byte, so a primary of
 either package replicates into a standby of either.
 
-The reference package also exports the failover client, the local
-fallback policy, the endpoint health tracker and ``ClusterStateManager``
-(``failover``, ``fallback``, ``endpoints``, ``manager``). They sit on the
-cluster client and the local engine, which are not ported yet, so they are
-not here.
+The reference package also exports ``ClusterStateManager``
+(``ha/manager.py``). Every one of its methods drives the transport's
+command handlers, which are not ported yet (ROADMAP item 14), so it is not
+here.
 """
 
+from sentinel_tpu_torch.ha.endpoints import Endpoint, EndpointHealth, HealthState
+from sentinel_tpu_torch.ha.failover import FailoverTokenClient
+from sentinel_tpu_torch.ha.fallback import (
+    FallbackAction,
+    FallbackRule,
+    LocalFallbackPolicy,
+)
 from sentinel_tpu_torch.ha.replication import ReplicationSender, StandbyApplier
 from sentinel_tpu_torch.ha.snapshot import (
     SNAPSHOT_VERSION,
@@ -32,6 +44,13 @@ from sentinel_tpu_torch.ha.snapshot import (
 )
 
 __all__ = [
+    "Endpoint",
+    "EndpointHealth",
+    "HealthState",
+    "FailoverTokenClient",
+    "FallbackAction",
+    "FallbackRule",
+    "LocalFallbackPolicy",
     "ReplicationSender",
     "StandbyApplier",
     "SNAPSHOT_VERSION",

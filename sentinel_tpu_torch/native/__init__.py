@@ -1,2 +1,3 @@
-"""The native front doors (``native/src/``), built from the checkout at first
-use and bound with ctypes: :mod:`.build` compiles, :mod:`.lib` binds."""
+"""The native front doors and the local engine's sliding window
+(``native/src/``), built from the checkout at first use and bound with
+ctypes: :mod:`.build` compiles, :mod:`.lib` binds."""

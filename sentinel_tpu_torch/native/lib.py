@@ -1,13 +1,16 @@
-"""ctypes binding to the native front doors (the port's copy of the door
-half of ``sentinel_tpu/native/lib.py``).
+"""ctypes binding to the native front doors and the local engine's
+sliding window (the port's copy of the door half and the window of
+``sentinel_tpu/native/lib.py``).
 
 :func:`load` builds the repo's ``native/src/*.cpp`` into
 ``sentinel_tpu_torch/build/`` at first use (:mod:`.build`) and loads that
 library; it never loads the JAX package's library. Unlike the reference,
 nothing here degrades to a pure-Python path: a failed build or load raises
 with the compiler's output. :class:`Frontdoor` is the epoll TCP door,
-:class:`ShmDoor` the shared-memory ring door for co-located clients, and
-:class:`ShmRingClient` the client half of one ring segment.
+:class:`ShmDoor` the shared-memory ring door for co-located clients,
+:class:`ShmRingClient` the client half of one ring segment, and
+:class:`NativeWindow` the lock-free sliding window behind the local
+engine's statistic nodes (``local/stat.py``).
 """
 
 from __future__ import annotations
@@ -23,7 +26,25 @@ _lib: Optional[ctypes.CDLL] = None
 
 def _configure(lib: ctypes.CDLL) -> ctypes.CDLL:
     P, I32, I64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
+    F64 = ctypes.c_double
     sig = {
+        # sliding windows of the local engine (sentinel_native.cpp)
+        "sn_window_create": ([I32, I32, I32], P),
+        "sn_window_destroy": ([P], None),
+        "sn_window_add": ([P, I64, I32, F64], None),
+        "sn_window_sum": ([P, I64, I32], F64),
+        "sn_window_snapshot": ([P, I64, ctypes.POINTER(F64)], None),
+        "sn_window_prev_bucket": ([P, I64, I32], F64),
+        "sn_window_min_ratio": ([P, I64, I32, I32], F64),
+        "sn_window_start_at": ([P, I32], I64),
+        "sn_window_count_at": ([P, I32, I32], F64),
+        "sn_window_add_future": ([P, I64, I32, F64], None),
+        "sn_window_future_waiting": ([P, I64, I32], F64),
+        "sn_window_take_matured": ([P, I64, I32], F64),
+        "sn_stat_pass": ([P, P, P, I64, F64], None),
+        "sn_stat_event": ([P, P, I64, I32, F64], None),
+        "sn_stat_rt_success": ([P, P, I64, F64, F64], None),
+        "sn_stat_touched_sum": ([P, P, P, I64, I32], F64),
         # native TCP front door (sentinel_frontdoor.cpp)
         "sn_fd_create": ([ctypes.c_char_p, I32, I32], P),
         "sn_fd_port": ([P], I32),
@@ -561,3 +582,65 @@ class ShmRingClient:
             self.close()
         except Exception:
             pass
+
+
+class NativeWindow:
+    """Sliding window backed by the native library: the API of
+    ``local.stat.HostWindow`` plus the future (occupy) ops. The library is
+    built at the first window's construction; a failed build raises."""
+
+    __slots__ = ("_lib", "_h", "bucket_ms", "n_buckets", "n_channels",
+                 "interval_ms")
+
+    def __init__(self, bucket_ms: int, n_buckets: int, n_channels: int):
+        lib = load()
+        self._lib = lib
+        self._h = lib.sn_window_create(bucket_ms, n_buckets, n_channels)
+        if not self._h:
+            raise MemoryError("sn_window_create failed")
+        self.bucket_ms = bucket_ms
+        self.n_buckets = n_buckets
+        self.n_channels = n_channels
+        self.interval_ms = bucket_ms * n_buckets
+
+    def __del__(self):
+        h = getattr(self, "_h", None)
+        if h:
+            self._lib.sn_window_destroy(h)
+            self._h = None
+
+    def add(self, now: int, chan: int, n: float = 1.0) -> None:
+        self._lib.sn_window_add(self._h, now, chan, n)
+
+    def sum(self, now: int, chan: int) -> float:
+        return self._lib.sn_window_sum(self._h, now, chan)
+
+    def qps(self, now: int, chan: int) -> float:
+        return self.sum(now, chan) * 1000.0 / self.interval_ms
+
+    def snapshot(self, now: int) -> list:
+        out = (ctypes.c_double * self.n_channels)()
+        self._lib.sn_window_snapshot(self._h, now, out)
+        return list(out)
+
+    def previous_bucket(self, now: int, chan: int) -> float:
+        return self._lib.sn_window_prev_bucket(self._h, now, chan)
+
+    def min_ratio(self, now: int, num_chan: int, den_chan: int) -> float:
+        return self._lib.sn_window_min_ratio(self._h, now, num_chan, den_chan)
+
+    def start_at(self, b: int) -> int:
+        return self._lib.sn_window_start_at(self._h, b)
+
+    def count_at(self, b: int, chan: int) -> float:
+        return self._lib.sn_window_count_at(self._h, b, chan)
+
+    # future/occupy ops (FutureWindow analog; use a dedicated instance)
+    def add_future(self, future_time: int, n: float, chan: int = 0) -> None:
+        self._lib.sn_window_add_future(self._h, future_time, chan, n)
+
+    def future_waiting(self, now: int, chan: int = 0) -> float:
+        return self._lib.sn_window_future_waiting(self._h, now, chan)
+
+    def take_matured(self, now: int, chan: int = 0) -> float:
+        return self._lib.sn_window_take_matured(self._h, now, chan)

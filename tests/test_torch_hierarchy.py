@@ -7,7 +7,8 @@ classes (``TestWaterFill``, ``TestDemandReportCodec``,
 ``TestLedgerSnapshotPiggyback``, ``TestCoordinatorElection``, and
 ``TestCoordinatorKill`` through the port's asyncio ``TokenServer`` and a
 ``TokenClient`` agent client, ``torch_hier_check.single_endpoint``; the
-reference's default agent client is ROADMAP item 11, and its
+agent's default client, the port's ``FailoverTokenClient``, walks a dead
+coordinator endpoint to a live one; the reference's
 ``TestAggregateGlobalBlock`` needs ``cluster/namespaces.py``, item 12).
 
 Across packages, bitwise: a seeded sequence of holds, pulls and clock steps
@@ -20,6 +21,7 @@ JAX coordinator, with equal shares; and ``export_delta["hier"]`` streamed
 from a JAX primary into a port standby and the reverse.
 """
 
+import socket
 import threading
 import time
 
@@ -67,6 +69,7 @@ from sentinel_tpu_torch.core import clock as t_clock  # noqa: E402
 from sentinel_tpu_torch.engine import ClusterFlowRule, EngineConfig  # noqa: E402
 from sentinel_tpu_torch.engine.rules import ThresholdMode  # noqa: E402
 from sentinel_tpu_torch.ha import replication as TR  # noqa: E402
+from sentinel_tpu_torch.ha.failover import FailoverTokenClient  # noqa: E402
 from sentinel_tpu_torch.ha.snapshot import (  # noqa: E402
     decode_snapshot,
     encode_snapshot,
@@ -582,9 +585,41 @@ class TestCoordinatorKill:
             coord.stop()
             srv.stop()
 
-    def test_agent_without_a_client_class_is_refused(self, manual_clock):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
-            PodShareAgent(_svc(), ["127.0.0.1:1"], "pod-a", [FLOW])
+    def test_default_client_walks_a_dead_coordinator_to_a_live_one(self):
+        """With no ``client_cls`` the agent ticks through the port's
+        ``FailoverTokenClient``: the first endpoint, where nothing listens,
+        is walked past to the live coordinator's door."""
+        budget = 40.0
+        svc = _svc(budget)
+        coord = GlobalBudgetCoordinator(
+            [GlobalFlowBudget(FLOW, budget, 1.0)],
+            share_ttl_ms=30_000, reconcile_ms=50,
+        )
+        svc.attach_hierarchy(coord)
+        srv = TokenServer(svc, port=0)
+        srv.start()
+        dead = socket.socket()
+        dead.bind(("127.0.0.1", 0))
+        dead_port = dead.getsockname()[1]
+        dead.close()
+        live = f"127.0.0.1:{srv.port}"
+        agent = PodShareAgent(
+            svc, [f"127.0.0.1:{dead_port}", live], "pod-a",
+            [GlobalFlowBudget(FLOW, budget, 1.0)],
+            tick_ms=50, timeout_ms=2000, deadline_ms=4000,
+        )
+        try:
+            assert isinstance(agent._client, FailoverTokenClient)
+            agent.tick()
+            coord.reconcile_once()
+            agent.tick()
+            assert 0 < agent.shares()[FLOW] <= int(budget)
+            assert str(agent._client.active_endpoint) == live
+            dead_health = agent._client.health_snapshot()[0]
+            assert dead_health["consecutiveFailures"] >= 1
+        finally:
+            agent.close()
+            srv.stop()
 
     def test_hier_stats_reach_server_metrics(self, manual_clock):
         """The service's hierarchy provider: agent counters overlaid by the

@@ -5,8 +5,11 @@ door's library is built and loaded, and a door has served a frame; after
 a standby door has applied a REPL snapshot and been promoted; and after a
 door has served a namespace move (MOVE_BEGIN, MOVE_STATE, MOVE_COMMIT from
 the port's ``MoveCoordinator``); and after the asyncio door has served the
-token client's frames and a share agent's hierarchy frames. The subprocesses write their stat logs into
-the test's temporary directory."""
+token client's frames and a share agent's hierarchy frames; and after the
+local engine built its native window and ran ``entry`` against an embedded
+service and a ``FailoverTokenClient`` walked a dead endpoint to a port door.
+The subprocesses write their stat logs into the test's temporary
+directory."""
 
 import os
 import pkgutil
@@ -49,7 +52,12 @@ def test_port_modules_import_without_jax(tmp_path):
                 "native.lib", "ha", "ha.snapshot", "ha.replication",
                 "core.property", "metrics.stat_logger", "cluster.rebalance",
                 "cluster.hierarchy", "cluster.server", "cluster.client",
-                "cluster.shm_client"):
+                "cluster.shm_client", "core.hashing", "core.registry",
+                "metrics.extension", "local", "local.base", "local.stat",
+                "local.context", "local.chain", "local.sph", "local.flow",
+                "local.degrade", "local.authority", "local.system_adaptive",
+                "local.param", "cluster.api", "ha.endpoints", "ha.fallback",
+                "ha.failover"):
         assert f"sentinel_tpu_torch.{mod}" in names, mod
     code = (
         "import importlib, sys\n"
@@ -239,6 +247,7 @@ def _port_sources():
     yield os.path.join(REPO, "tests", "torch_outcome_check.py")
     yield os.path.join(REPO, "tests", "torch_door_check.py")
     yield os.path.join(REPO, "tests", "torch_repl_check.py")
+    yield os.path.join(REPO, "tests", "torch_sdk_check.py")
 
 
 def test_port_sources_never_name_jax():
@@ -307,6 +316,71 @@ assert not bad, bad
 def test_asyncio_door_and_clients_serve_without_jax(tmp_path):
     out = subprocess.run(
         [sys.executable, "-I", "-c", _ASYNCIO_DOOR_SERVES.format(repo=REPO)],
+        capture_output=True, text=True, timeout=300, cwd=REPO,
+        env=_env(tmp_path),
+    )
+    assert out.returncode == 0, out.stderr[-2000:]
+
+
+_SDK_SERVES = """
+import importlib, socket, sys
+sys.path.insert(0, {repo!r})
+import sentinel_tpu_torch.local as sentinel
+from sentinel_tpu_torch import ha
+from sentinel_tpu_torch.cluster import api as cluster_api
+from sentinel_tpu_torch.cluster.server_native import NativeTokenServer
+from sentinel_tpu_torch.cluster.token_service import DefaultTokenService
+from sentinel_tpu_torch.engine import ClusterFlowRule, EngineConfig
+from sentinel_tpu_torch.local import stat
+from sentinel_tpu_torch.native.lib import NativeWindow
+
+assert stat._NATIVE
+assert not hasattr(ha, "ClusterStateManager")  # waits for the transport
+svc = DefaultTokenService(EngineConfig(max_flows=8, max_namespaces=2,
+                                       batch_size=64), device="cpu")
+svc.load_rules([ClusterFlowRule(1, 2.0)])
+cluster_api.set_embedded_server(svc)
+sentinel.FlowRuleManager.load_rules([sentinel.FlowRule(
+    resource="api", count=100.0, cluster_mode=True,
+    cluster_config={{"flow_id": 1}})])
+verdicts = []
+for _ in range(3):
+    try:
+        with sentinel.entry("api"):
+            verdicts.append(True)
+    except sentinel.BlockException:
+        verdicts.append(False)
+assert verdicts == [True, True, False], verdicts
+node = sentinel.chain.get_cluster_node("api")
+assert isinstance(node.sec, NativeWindow), type(node.sec)
+cluster_api.reset_for_tests()
+
+dead = socket.socket()
+dead.bind(("127.0.0.1", 0))
+dead_port = dead.getsockname()[1]
+dead.close()
+server = NativeTokenServer(svc, port=0, idle_ttl_s=None)
+server.start()
+try:
+    fc = ha.FailoverTokenClient([("127.0.0.1", dead_port),
+                                 ("127.0.0.1", server.port)],
+                                timeout_ms=10_000, failure_threshold=1)
+    r = fc.request_token(1)
+    assert r.status == 1 and fc.active_endpoint.port == server.port, r
+    fc.close()
+finally:
+    server.stop()
+bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
+             or m == "sentinel_tpu" or m.startswith("sentinel_tpu."))
+assert not bad, bad
+"""
+
+
+def test_sdk_entry_and_failover_client_without_jax(tmp_path):
+    if not (shutil.which("g++") or shutil.which("c++")):
+        pytest.skip("no C++ compiler on PATH to build the native library")
+    out = subprocess.run(
+        [sys.executable, "-I", "-c", _SDK_SERVES.format(repo=REPO)],
         capture_output=True, text=True, timeout=300, cwd=REPO,
         env=_env(tmp_path),
     )
