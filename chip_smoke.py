@@ -185,7 +185,28 @@ Builds the port's CUDA kernels from ``sentinel_tpu_torch/csrc`` (one
    within the drill's budget, and with both doors dark the fallback
    policy's BLOCK, PASS and THROTTLE answers and ``stats()`` held to what
    the entries saw;
-14. prints the timings, the card's name and power limit, one
+14. the control plane (``phase_control``): 14a, the Envoy RLS service
+   (``cluster.envoy_rls``) at phase 3's flow configuration with 100,000
+   descriptors in 16 domains (``tests/torch_rls_check.py``): 5,000 seeded
+   ``ShouldRateLimit`` requests through the protobuf codec, every
+   response's bytes equal to a torch-ops twin's, one decide launch a
+   request, each dispatch sync-free, no exception and no failure-mode
+   fallback; 1,000 more through ``co_located_rls`` to a native door's shm
+   ring; p50 / p99 of each; 14b, the port's ``RoutingTokenClient`` over
+   phase 11's two doors at phase 9's widths: FLOW and PARAM_FLOW rounds
+   equal to the owning twin's, a MOVE learned from the MOVED answer and the
+   source's pushed shard map, stale maps fenced, one decide launch a FLOW
+   frame and one count-min launch a PARAM_FLOW frame, then a live move
+   under the router's closed loop with zero over-admission; 14c,
+   ``sketch.parity`` at ``ParamConfig()``'s widths for both sketches:
+   200,000 keys and 1,000,000 events in 4,096-row batches, one launch a
+   batch, zero undercounts (fat and slim), final states bitwise equal to
+   the plain versions' (and of a 512-row-batch prefix), the reference's
+   slim gate at its own configuration (width 512) and stream, and each
+   report's error CDF; 14d, the BATCH_FLOW codec (the native library)
+   equal to the reference's numpy bodies at 64, 1,024 and 5,040 rows a
+   frame, with the host time of each;
+15. prints the timings, the card's name and power limit, one
    ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
 
 Any failed check raises and exits non-zero. With no CUDA device, or run from
@@ -200,8 +221,10 @@ import json
 import multiprocessing
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -1714,8 +1737,6 @@ def phase_ha(torch, dev):
        both servers stay within the window plus one ship interval's
        admissions and one pull, and the promoted standby blocks.
     """
-    import shutil
-
     import torch_door_check as DK
     import torch_kernel_check as DC
     import torch_outcome_check as OC
@@ -3345,13 +3366,15 @@ SDK_DARK_S = 0.45  # 13c's entries with both doors dark: within a bucket
 
 class Recorded:
     """Stands in for the token service that ``cluster_api`` hands the
-    cluster branches: counts every call and records every exception the
-    service raises before passing it on (the branches catch it and fall
-    back to the local rule, which would hide a failed kernel)."""
+    cluster branches (or that ``RlsService`` steps): counts every call and
+    records every exception the service raises before passing it on (the
+    branches catch it and fall back to the local rule, the RLS service to
+    its failure mode, either of which would hide a failed kernel)."""
 
     def __init__(self, target):
         self.target = target
-        self.calls = {"request_token": 0, "request_params_token": 0}
+        self.calls = {"request_token": 0, "request_params_token": 0,
+                      "request_batch": 0}
         self.errors = []
 
     def _call(self, name, *a):
@@ -3368,6 +3391,9 @@ class Recorded:
     def request_params_token(self, flow_id, acquire, param_hashes):
         return self._call("request_params_token", flow_id, acquire,
                           param_hashes)
+
+    def request_batch(self, requests):
+        return self._call("request_batch", requests)
 
     def close(self):
         self.target.close()
@@ -3415,7 +3441,6 @@ def phase_sdk(torch, dev):
     failover client across phase 10's primary and a warm standby (SIGKILL,
     promotion, both doors dark)."""
     import importlib
-    import shutil
 
     import torch_sdk_check as SDK
 
@@ -3876,6 +3901,700 @@ def sdk_failover(dev, pipe, child, drill_flows, snap_root, L) -> dict:
         standby.stop()
 
 
+RLS_DESCRIPTORS = 100_000  # EnvoyRlsRule descriptors over RLS_DOMAINS domains
+RLS_DOMAINS = 16
+RLS_COUNT_BASE = 100  # descriptor i counts RLS_COUNT_BASE + i % 100 a second
+RLS_REQUESTS = 5000  # 14a's seeded ShouldRateLimit stream, in process
+RLS_SHM_REQUESTS = 1000  # and then through co_located_rls's shm ring
+RLS_STEPS_MS = (0, 0, 1, 0)  # manual clock between requests: 1.25 s a 5000
+RLS_SEED = 141
+ROUTE_ROUNDS = 3  # lockstep rounds before the move, and as many after
+ROUTE_FLOWS = 40  # FLOW requests a round, bounded-Zipf over every flow
+ROUTE_MOVED_FLOWS = 20  # and on the moved namespace's flows
+ROUTE_PARAMS = 10  # PARAM_FLOW requests a round on the param rules
+ROUTE_LIVE_S = (1.0, 1.0)  # 14b's live loop before the move and after it
+ROUTE_LIVE_FLOWS = 4  # the live namespace's flows the loop hammers
+ROUTE_LIVE_ACQUIRE = 8  # tokens a request: the flows' counts bind
+SKETCH_KEYS = 200_000  # ClusterParamMetric.java:37
+SKETCH_EVENTS = 1_000_000
+SKETCH_BATCH = 4096
+SKETCH_PREFIX = (65_536, 512)  # events and rows a batch of the prefix
+SKETCH_GATE = (128, 4096)  # keys and events of the reference's slim gate
+# and its configuration (tests/test_sketch_parity.py's _cfg and slim test)
+SKETCH_GATE_CFG = dict(max_param_rules=8, depth=2, width=512, slim_depth=2,
+                       slim_width=256)
+
+
+def phase_control(torch, dev):
+    """Phase 14: the control plane on the card. 14a, the Envoy RLS service
+    (``cluster.envoy_rls``) at phase 3's flow configuration; 14b, a
+    ``RoutingTokenClient`` across namespace MOVEs between two native doors
+    at phase 9's widths; 14c, the sketch parity harness
+    (``sketch.parity``) through the count-min and SALSA kernels; 14d, the
+    BATCH_FLOW codec on the host, native against numpy."""
+    t_phase = time.perf_counter()
+    out = {"rls": control_rls(torch, dev),
+           "routing": control_routing(torch, dev),
+           "sketch": control_sketch(torch, dev),
+           "codec": control_codec()}
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"control phase: {out['phase_s']:.1f} s")
+    return out
+
+
+def rls_service(dev, twin=False):
+    """Phase 3's flow configuration, empty: on the decide kernel or, with
+    ``twin``, on the torch-ops pipeline."""
+    from sentinel_tpu_torch.cluster.token_service import DefaultTokenService
+    from sentinel_tpu_torch.engine import EngineConfig
+
+    cfg = EngineConfig(max_flows=F, max_namespaces=NS, batch_size=SIZES[-1],
+                       decide_impl="xla" if twin else "auto")
+    return DefaultTokenService(cfg, device=dev)
+
+
+def sync_checked(torch, svc, counter):
+    """Run ``svc``'s dispatches under torch's sync debug mode (an instance
+    attribute over the method; ``del`` it to restore)."""
+    dispatch = svc.dispatch_batch_arrays
+
+    def checked(ids, counts=None, prios=None):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            mat = dispatch(ids, counts, prios)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        counter[0] += 1
+        return mat
+
+    svc.dispatch_batch_arrays = checked
+
+
+def control_rls(torch, dev):
+    """14a. ``RLS_DESCRIPTORS`` descriptors (all in the ``default``
+    namespace, under its 30,000 QPS guard, as in the reference) on a card
+    service and its torch-ops twin; ``RLS_REQUESTS`` seeded requests, each
+    encoded, decoded, answered by ``RlsService.should_rate_limit`` and
+    encoded: every response's bytes equal the twin's, one decide launch a
+    request, each dispatch sync-free, no exception (a recording proxy) and
+    no failure-mode fallback. Then ``RLS_SHM_REQUESTS`` more through
+    ``co_located_rls`` to a native door's shm ring over the card service,
+    equal to the twin."""
+    import torch_rls_check as RQ
+
+    from sentinel_tpu_torch.cluster import envoy_rls as R
+    from sentinel_tpu_torch.cluster.server_native import NativeTokenServer
+    from sentinel_tpu_torch.core import clock
+    from sentinel_tpu_torch.metrics.ha import ha_metrics
+    from sentinel_tpu_torch.ops import decide_cuda as K
+
+    t0 = time.perf_counter()
+    spec = RQ.rule_spec(RLS_DESCRIPTORS, RLS_DOMAINS, base=RLS_COUNT_BASE)
+    requests = RQ.stream(spec, RLS_REQUESTS + RLS_SHM_REQUESTS,
+                         np.random.default_rng(RLS_SEED))
+    t0_ms = int(time.time() * 1000) // 60_000 * 60_000 - 120_000
+    mc = clock.ManualClock(t0_ms)
+    prev = clock.set_clock(mc)
+    out = {}
+    try:
+        card, twin = rls_service(dev), rls_service(dev, twin=True)
+        managers = []
+        for svc in (card, twin):
+            m = R.EnvoyRlsRuleManager(svc)
+            m.load_rules(RQ.build_rules(R, spec))
+            svc.warmup()
+            managers.append(m)
+        if (len(card._rule_of) != RLS_DESCRIPTORS
+                or set(card._rules_by_ns) != {"default"}
+                or card._ns_max_qps != 30_000.0):
+            raise AssertionError(
+                f"rls: {len(card._rule_of)} rules in "
+                f"{sorted(card._rules_by_ns)} under {card._ns_max_qps} QPS, "
+                f"not {RLS_DESCRIPTORS} in 'default' under 30,000")
+        ids = np.fromiter(card._rule_of, np.int64, len(card._rule_of))
+        if int(ids.max()) < 2**62:
+            raise AssertionError("rls: no flow id above 2^62")
+        rec = Recorded(card)
+        card_rls = R.RlsService(rec, managers[0])
+        twin_rls = R.RlsService(twin, managers[1])
+        log(f"rls: {RLS_DESCRIPTORS} descriptors in {RLS_DOMAINS} domains "
+            f"loaded on the card and the twin in "
+            f"{time.perf_counter() - t0:.1f} s")
+        fb0 = dict(ha_metrics().fallback_totals())
+        checked = [0]
+        sync_checked(torch, card, checked)
+        K.LAUNCHES.update(dict.fromkeys(K.LAUNCHES, 0))
+        lat, responses = [], []
+        t_run = time.perf_counter()
+        try:
+            for i, (domain, descs, hits) in enumerate(
+                    requests[:RLS_REQUESTS]):
+                t1 = time.perf_counter()
+                a = RQ.answer(R, card_rls, domain, descs, hits)
+                lat.append(time.perf_counter() - t1)
+                b = RQ.answer(R, twin_rls, domain, descs, hits)
+                if a != b:
+                    raise AssertionError(
+                        f"rls: response {i} differs from the twin's: "
+                        f"{R.decode_rate_limit_response(a)} != "
+                        f"{R.decode_rate_limit_response(b)}")
+                responses.append(a)
+                mc.advance(RLS_STEPS_MS[i % len(RLS_STEPS_MS)])
+        finally:
+            del card.dispatch_batch_arrays
+        run_s = time.perf_counter() - t_run
+        launches = K.LAUNCHES["decide_rows"]
+        fb = ha_metrics().fallback_totals()
+        fallbacks = {k: fb.get(k, 0) - fb0.get(k, 0)
+                     for k in ("rls_allow", "rls_deny")}
+        summary = RQ.summary(R, responses)
+        if rec.errors:
+            raise AssertionError(f"rls: the service raised: "
+                                 f"{rec.errors[:3]}")
+        if launches != RLS_REQUESTS or checked[0] != RLS_REQUESTS:
+            raise AssertionError(f"rls: {launches} decide launches and "
+                                 f"{checked[0]} checked dispatches for "
+                                 f"{RLS_REQUESTS} requests")
+        if any(fallbacks.values()):
+            raise AssertionError(f"rls: failure-mode fallbacks {fallbacks}")
+        if not (summary["overall"].get(R.CODE_OVER_LIMIT)
+                and summary["overall"].get(R.CODE_OK)):
+            raise AssertionError(f"rls: the stream never limited: {summary}")
+        a = np.array(lat) * 1e3
+        out["in_process"] = dict(
+            requests=RLS_REQUESTS, launches=launches,
+            sync_free_dispatches=checked[0], fallbacks=fallbacks,
+            summary=summary, p50_ms=float(np.percentile(a, 50)),
+            p99_ms=float(np.percentile(a, 99)), run_s=run_s,
+            engine_ms=mc.now_ms() - t0_ms)
+        log(f"rls 14a: {RLS_REQUESTS} requests equal to the twin byte for "
+            f"byte ({summary}); {launches} decide launches, every dispatch "
+            f"sync-free, no exception, fallbacks {fallbacks}; p50 "
+            f"{out['in_process']['p50_ms']:.3f} ms, p99 "
+            f"{out['in_process']['p99_ms']:.3f} ms in process "
+            f"({run_s:.1f} s with the twin)")
+
+        # --- co-located: the shm ring of a native door --------------------
+        build = os.path.join(HERE, "sentinel_tpu_torch", "build")
+        os.makedirs(build, exist_ok=True)
+        shm_dir = tempfile.mkdtemp(prefix="rls_shm_", dir=build)
+        door = NativeTokenServer(card, port=0, idle_ttl_s=None,
+                                 shm_dir=shm_dir)
+        door.start()
+        try:
+            c_rls, c_rules, client = R.co_located_rls(shm_dir,
+                                                      timeout_ms=10_000)
+            try:
+                c_rules.load_rules(RQ.build_rules(R, spec))
+                K.LAUNCHES.update(dict.fromkeys(K.LAUNCHES, 0))
+                lat = []
+                for i, (domain, descs, hits) in enumerate(
+                        requests[RLS_REQUESTS:]):
+                    t1 = time.perf_counter()
+                    a = RQ.answer(R, c_rls, domain, descs, hits)
+                    lat.append(time.perf_counter() - t1)
+                    b = RQ.answer(R, twin_rls, domain, descs, hits)
+                    if a != b:
+                        raise AssertionError(
+                            f"rls: shm response {i} differs from the twin's")
+                    mc.advance(RLS_STEPS_MS[i % len(RLS_STEPS_MS)])
+                shm_launches = K.LAUNCHES["decide_rows"]
+            finally:
+                client.close()
+        finally:
+            door.stop()
+            shutil.rmtree(shm_dir, ignore_errors=True)
+        if shm_launches != RLS_SHM_REQUESTS:
+            raise AssertionError(f"rls: {shm_launches} decide launches for "
+                                 f"{RLS_SHM_REQUESTS} shm requests")
+        fb = ha_metrics().fallback_totals()
+        if any(fb.get(k, 0) - fb0.get(k, 0) for k in fallbacks):
+            raise AssertionError("rls: a failure-mode fallback through the "
+                                 "shm ring")
+        a = np.array(lat) * 1e3
+        out["shm"] = dict(requests=RLS_SHM_REQUESTS, launches=shm_launches,
+                          p50_ms=float(np.percentile(a, 50)),
+                          p99_ms=float(np.percentile(a, 99)))
+        log(f"rls 14a co-located: {RLS_SHM_REQUESTS} requests through "
+            f"co_located_rls's shm ring equal to the twin; "
+            f"{shm_launches} decide launches; p50 "
+            f"{out['shm']['p50_ms']:.3f} ms, p99 "
+            f"{out['shm']['p99_ms']:.3f} ms")
+    finally:
+        clock.set_clock(prev)
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
+def control_routing(torch, dev):
+    """14b. Phase 11's two doors at phase 9's widths (the source serves
+    every namespace, the destination the odd ones) and a torch-ops twin of
+    each; the port's ``RoutingTokenClient`` routes by namespace (even to the
+    source, odd to the destination). On a manual clock: ``ROUTE_ROUNDS``
+    lockstep rounds of FLOW and PARAM_FLOW requests, every answer equal to
+    the owning twin's; ``MoveCoordinator`` moves ``MOVE_NS`` under the next
+    epoch of a ``ShardMapPublisher``; the source answers the router MOVED with the epoch
+    (its twin too); the source door pushes the new shard map, which the
+    router applies; a stale map, pushed or applied, is fenced out; as many
+    rounds again, ``MOVE_NS`` through the destination; one decide launch a
+    FLOW frame and one count-min launch a PARAM_FLOW frame. Then on the
+    system clock ``LIVE_NS`` moves under the router's closed loop (the
+    shape of ``test_move_commits_under_device_stall_with_live_traffic``):
+    no request raises, the router follows the pushed map, and the tokens
+    admitted on the hammered flows over both doors within any span shorter
+    than a window stay within their counts (over-admission 0)."""
+    import torch_kernel_check as DC
+    import torch_param_check as PC
+
+    from sentinel_tpu_torch.cluster.client import TokenClient
+    from sentinel_tpu_torch.cluster.rebalance import (
+        MoveCoordinator,
+        ShardMap,
+        ShardMapPublisher,
+        encode_shard_map_doc,
+    )
+    from sentinel_tpu_torch.cluster.routing import RoutingTokenClient
+    from sentinel_tpu_torch.cluster.server_native import NativeTokenServer
+    from sentinel_tpu_torch.core import clock
+    from sentinel_tpu_torch.engine.decide import TokenStatus
+    from sentinel_tpu_torch.metrics.ha import ha_metrics
+    from sentinel_tpu_torch.ops import cms_cuda
+    from sentinel_tpu_torch.ops import decide_cuda as K
+
+    t0 = time.perf_counter()
+    out = {}
+    flow, degrade, params = move_rules()
+    odd = [r for r in flow if (r.flow_id % NS) % 2]
+    dst_rules = (odd, [d for d in degrade if (d.flow_id % NS) % 2],
+                 [p for p in params if p.namespace != MOVE_NS])
+    flow_ids = np.arange(F, dtype=np.int64)
+    zipf = DC.ZipfIds(F, alpha=1.1)
+    ns0_ids = flow_ids[flow_ids % NS == 0]
+    ns0_zipf = DC.ZipfIds(ns0_ids.size, alpha=1.1)
+    specs = PC.service_rule_specs(256, np.random.default_rng(41))
+    mc = clock.ManualClock(int(time.time() * 1000) // 60_000 * 60_000
+                           - 180_000)
+    prev = clock.set_clock(mc)
+    answers = []  # (perf_counter, door port, kind, status)
+
+    class Tagged(TokenClient):
+        """The router's pod client, logging every answer it gets."""
+
+        def request_token(self, fid, acquire=1, prioritized=False):
+            r = super().request_token(fid, acquire, prioritized)
+            answers.append((time.perf_counter(), self.port, "flow",
+                            int(r.status)))
+            return r
+
+        def request_params_token(self, fid, acquire, hashes):
+            r = super().request_params_token(fid, acquire, hashes)
+            answers.append((time.perf_counter(), self.port, "param",
+                            int(r.status)))
+            return r
+
+    servers, rc = [], None
+    try:
+        src_svc = ha_service(dev, (flow, degrade, params))
+        dst_svc = ha_service(dev, dst_rules)
+        twin_src = ha_service(dev, (flow, degrade, params), twin=True)
+        twin_dst = ha_service(dev, dst_rules, twin=True)
+        for s in (twin_src, twin_dst):
+            s.warmup()
+        src = NativeTokenServer(src_svc, host="127.0.0.1", port=0,
+                                idle_ttl_s=None)
+        dst = NativeTokenServer(dst_svc, host="127.0.0.1", port=0,
+                                idle_ttl_s=None)
+        servers += [src, dst]
+        src.start()
+        dst.start()
+        src_ep, dst_ep = (f"127.0.0.1:{src.port}", f"127.0.0.1:{dst.port}")
+        imports = []
+        dst_import = dst_svc.import_namespace_state
+
+        def recorded_import(doc):
+            dst_import(doc)
+            imports.append(doc)
+
+        dst_svc.import_namespace_state = recorded_import
+        pub = ShardMapPublisher()
+        push_now = [False]
+        # the source door pushes each newly published map to its clients;
+        # 14b's lockstep move holds the push until the router has read a
+        # MOVED answer
+        pub.listen(lambda m: push_now[0] and m is not None and m.epoch > 0
+                   and src.push_hub.push_shard_map(encode_shard_map_doc(m)))
+        rc = RoutingTokenClient(
+            timeout_ms=10_000,
+            namespace_of={int(f): ns_of(int(f)) for f in np.concatenate(
+                [flow_ids, [p.flow_id for p in params]])},
+            pod_of={f"ns{k}": dst_ep if k % 2 else src_ep
+                    for k in range(NS)},
+            endpoints={ep: ("127.0.0.1", int(ep.rpartition(":")[2]))
+                       for ep in (src_ep, dst_ep)},
+            client_factory=Tagged,
+        )
+        owner = {f"ns{k}": (twin_dst if k % 2 else twin_src)
+                 for k in range(NS)}
+        log(f"routing: two doors and their twins up in "
+            f"{time.perf_counter() - t0:.1f} s")
+
+        def plan(rng, rounds):
+            steps = []
+            for _ in range(rounds):
+                rows = [("flow", int(f)) for f in flow_ids[zipf(
+                    rng, ROUTE_FLOWS)]]
+                rows += [("flow", int(f)) for f in ns0_ids[ns0_zipf(
+                    rng, ROUTE_MOVED_FLOWS)]]
+                rows += [("param", s) for s in PC.service_stream(
+                    specs, rng, ROUTE_PARAMS)]
+                for k in rng.permutation(len(rows)):
+                    steps.append(rows[int(k)])
+            return steps
+
+        def lockstep(rng, steps):
+            counts = {"flow": 0, "param": 0}
+            for kind, row in steps:
+                if kind == "flow":
+                    acq, pr = int(rng.integers(1, 3)), bool(rng.random()
+                                                           < 0.1)
+                    a = rc.request_token(row, acq, pr)
+                    b = owner[ns_of(row)].request_token(row, acq, pr)
+                else:
+                    fid, acq, hashes = row
+                    a = rc.request_params_token(fid, acq, hashes)
+                    b = owner[ns_of(fid)].request_params_token(fid, acq,
+                                                               hashes)
+                if (a.status, a.remaining, a.wait_ms) != (
+                        b.status, b.remaining, b.wait_ms):
+                    raise AssertionError(f"routing: {kind} {row}: {a} != "
+                                         f"the twin's {b}")
+                counts[kind] += 1
+                mc.advance(int(rng.integers(0, 4)))
+            return counts
+
+        rng = np.random.default_rng(71)
+        K.LAUNCHES.update(dict.fromkeys(K.LAUNCHES, 0))
+        cms_cuda.LAUNCHES.update(dict.fromkeys(cms_cuda.LAUNCHES, 0))
+        before = lockstep(rng, plan(rng, ROUTE_ROUNDS))
+        launches = {"decide": K.LAUNCHES["decide_rows"],
+                    "cms": cms_cuda.LAUNCHES["cms_decide_update"]}
+        if (launches["decide"], launches["cms"]) != (before["flow"],
+                                                     before["param"]):
+            raise AssertionError(f"routing: launches {launches} for "
+                                 f"{before} frames before the move")
+
+        # --- the lockstep move, learned from MOVED and a pushed map ------
+        coord = MoveCoordinator(src_svc, self_endpoint=src_ep, publisher=pub)
+        epoch = pub.current().epoch + 1
+        t1 = time.perf_counter()
+        if not coord.move_namespace(MOVE_NS, dst_ep):
+            raise AssertionError(f"routing: the move of {MOVE_NS} did not "
+                                 f"commit: {coord.last_error}")
+        move_ms = (time.perf_counter() - t1) * 1e3
+        bad = docs_diff(twin_src.export_namespace_state(MOVE_NS), imports[-1])
+        if bad:
+            raise AssertionError(f"routing: the twin source's document "
+                                 f"differs from the imported one in {bad}")
+        twin_dst.import_namespace_state(imports[-1])
+        twin_src.begin_move(MOVE_NS, dst_ep, epoch)
+        if rc.epoch != 0:
+            raise AssertionError("routing: the router moved before a push")
+        fb0 = ha_metrics().fallback_totals().get("moved_follow", 0)
+        K.LAUNCHES.update(dict.fromkeys(K.LAUNCHES, 0))
+        cms_cuda.LAUNCHES.update(dict.fromkeys(cms_cuda.LAUNCHES, 0))
+        probe = int(ns0_ids[0])
+        a = rc.request_token(probe)
+        b = twin_src.request_token(probe)
+        t_moved = answers[-1][0]
+        if (a.status != TokenStatus.MOVED or a.remaining != epoch
+                or (a.status, a.remaining) != (b.status, b.remaining)):
+            raise AssertionError(f"routing: the stale route got {a}, the "
+                                 f"twin {b}")
+        if ha_metrics().fallback_totals().get("moved_follow", 0) != fb0 + 1:
+            raise AssertionError("routing: the MOVED answer was not followed")
+        push_now[0] = True
+        src.push_hub.push_shard_map(encode_shard_map_doc(pub.current()))
+        wait_for(lambda: rc.epoch == epoch, "routing: the pushed map", 10.0)
+        a = rc.request_token(probe)
+        t_dest = answers[-1][0]
+        b = twin_dst.request_token(probe)
+        if answers[-1][1] != dst.port or (a.status, a.remaining) != (
+                b.status, b.remaining):
+            raise AssertionError(f"routing: after the push {a}, the twin "
+                                 f"{b}")
+        moved_to_dest_ms = (t_dest - t_moved) * 1e3
+        # the fence: a stale map, pushed or applied, changes nothing
+        src.push_hub.push_shard_map(encode_shard_map_doc(
+            ShardMap(epoch - 1, {MOVE_NS: src_ep})))
+        rc._clients[src_ep].ping()
+        fenced = not rc.apply_shard_map(ShardMap(epoch, {MOVE_NS: src_ep}))
+        if not fenced or rc.epoch != epoch or \
+                rc._state.pod_of[MOVE_NS] != dst_ep:
+            raise AssertionError("routing: a stale map moved the route")
+        owner[MOVE_NS] = twin_dst
+        after = lockstep(rng, plan(rng, ROUTE_ROUNDS))
+        after["flow"] += 2
+        launches_after = {"decide": K.LAUNCHES["decide_rows"],
+                          "cms": cms_cuda.LAUNCHES["cms_decide_update"]}
+        if (launches_after["decide"], launches_after["cms"]) != (
+                after["flow"], after["param"]):
+            raise AssertionError(f"routing: launches {launches_after} for "
+                                 f"{after} frames after the move")
+        on_dst = sum(1 for t, port, kind, st in answers
+                     if t > t_dest and port == dst.port)
+        out["lockstep"] = dict(
+            before=before, after=after, move_ms=move_ms,
+            moved_to_dest_ms=moved_to_dest_ms,
+            decide_launches=launches["decide"] + launches_after["decide"],
+            param_launches=launches["cms"] + launches_after["cms"],
+            answers_from_destination=on_dst)
+        log(f"routing 14b: {sum(before.values())} requests before and "
+            f"{sum(after.values())} after moving {MOVE_NS} (committed in "
+            f"{move_ms:.1f} ms) equal to the owning twin's; the stale route "
+            f"got MOVED with epoch {epoch}, the pushed map re-routed "
+            f"the router: {moved_to_dest_ms:.1f} ms from the MOVED answer "
+            f"to the destination's first; stale maps fenced; "
+            f"{out['lockstep']['decide_launches']} decide launches for as "
+            f"many FLOW frames, {out['lockstep']['param_launches']} "
+            f"count-min launches for as many PARAM_FLOW frames")
+
+        # --- a live move under the router's closed loop --------------------
+        clock.set_clock(prev)
+        live_ids = flow_ids[flow_ids % NS == int(LIVE_NS[2:])][
+            :ROUTE_LIVE_FLOWS]
+        thresholds = np.array([src_svc._rule_of[int(f)].count
+                               for f in live_ids], np.int64)
+        spans, admitted, statuses = [], [], {}
+        result, raised = {}, [0]
+
+        def mover():
+            result["ok"] = coord.move_namespace(LIVE_NS, dst_ep)
+
+        lrng = np.random.default_rng(72)
+        mark = len(answers)
+        thread = None
+        t_begin = time.monotonic()
+        t_stop = None
+        while t_stop is None or time.monotonic() < t_stop:
+            if thread is None and time.monotonic() - t_begin > \
+                    ROUTE_LIVE_S[0]:
+                thread = threading.Thread(target=mover)
+                thread.start()
+            if thread is not None and t_stop is None and \
+                    not thread.is_alive():
+                t_stop = time.monotonic() + ROUTE_LIVE_S[1]
+            k = int(lrng.integers(live_ids.size))
+            sent = time.time() * 1e3
+            try:
+                r = rc.request_token(int(live_ids[k]), ROUTE_LIVE_ACQUIRE)
+            except Exception:
+                raised[0] += 1
+                continue
+            row = np.zeros(live_ids.size, np.int64)
+            if r.status == TokenStatus.OK:
+                row[k] = ROUTE_LIVE_ACQUIRE
+            statuses[int(r.status)] = statuses.get(int(r.status), 0) + 1
+            spans.append((sent, time.time() * 1e3))
+            admitted.append(row)
+        thread.join(timeout=120)
+        if not result.get("ok") or raised[0]:
+            raise AssertionError(f"routing: the live move ({result}, "
+                                 f"{raised[0]} raised): {coord.last_error}")
+        window = window_less_bucket_ms(src_svc)
+        over = over_admission(spans, np.array(admitted), thresholds, window)
+        live_answers = answers[mark:]
+        moved_t = [t for t, port, kind, st in live_answers
+                   if st == int(TokenStatus.MOVED)]
+        dest_t = [t for t, port, kind, st in live_answers
+                  if port == dst.port and moved_t and t > moved_t[0]]
+        if over != 0 or rc.epoch != epoch + 1 or not dest_t:
+            raise AssertionError(f"routing: live over-admission {over}, "
+                                 f"epoch {rc.epoch}, {len(dest_t)} answers "
+                                 f"from the destination")
+        out["live"] = dict(
+            requests=len(spans), statuses=statuses, over_admission=over,
+            span_ms=window, moved_answers=len(moved_t),
+            moved_to_dest_ms=((dest_t[0] - moved_t[0]) * 1e3
+                              if moved_t else None),
+            admitted=int(np.array(admitted).sum()))
+        log(f"routing 14b live: {len(spans)} requests of "
+            f"{ROUTE_LIVE_ACQUIRE} tokens on {live_ids.size} flows of "
+            f"{LIVE_NS}, moved under the loop; statuses {statuses}; "
+            f"{len(moved_t)} MOVED answers, "
+            f"{out['live']['moved_to_dest_ms']} ms from the first to the "
+            f"destination's first; over-admission {over} (spans under "
+            f"{window} ms)")
+    finally:
+        clock.set_clock(prev)
+        if rc is not None:
+            rc.close()
+        for s in servers:
+            s.stop()
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
+def control_sketch(torch, dev):
+    """14c. ``sketch.parity`` at ``ParamConfig()``'s widths, per sketch:
+    ``stream_report`` over ``SKETCH_KEYS`` keys and ``SKETCH_EVENTS`` events
+    (alpha 1.1) in ``SKETCH_BATCH``-row batches through the kernel, one
+    launch a batch, zero undercounts for the fat sketch and the slim twin;
+    the final ``ParamState`` of that stream and of a ``SKETCH_PREFIX``
+    prefix bitwise equal to the plain versions' on the card; the
+    reference's slim gate (p90 within 2x of the fat sketch's, with its
+    2-count floor) at the configuration and on the stream it is defined for
+    (``SKETCH_GATE_CFG``, ``SKETCH_GATE``: width 512, one the twin can
+    hold). The slim-over-fat mean relative error at ``SKETCH_KEYS`` keys is
+    reported, not gated."""
+    from sentinel_tpu_torch.engine.param import ParamConfig
+    from sentinel_tpu_torch.ops import cms_cuda, salsa_cuda
+    from sentinel_tpu_torch.sketch import parity as SP
+
+    t0 = time.perf_counter()
+    out = {}
+    hashes, _ids = SP.zipf_stream(SKETCH_KEYS, SKETCH_EVENTS)
+    for sketch in SKETCHES:
+        cfg = ParamConfig(sketch=sketch)
+        plain = cfg._replace(impl="jax")
+        L, name = ((cms_cuda.LAUNCHES, "cms_decide_update") if sketch == "cms"
+                   else (salsa_cuda.LAUNCHES, "salsa_decide_update"))
+        L.update(dict.fromkeys(L, 0))
+        t1 = time.perf_counter()
+        rep = SP.stream_report(cfg, n_keys=SKETCH_KEYS,
+                               n_events=SKETCH_EVENTS, batch=SKETCH_BATCH,
+                               device=dev)
+        report_s = time.perf_counter() - t1
+        batches = -(-SKETCH_EVENTS // SKETCH_BATCH)
+        launches = L[name]
+        if launches != batches:
+            raise AssertionError(f"sketch {sketch}: {launches} launches for "
+                                 f"{batches} batches")
+        if rep["undercounts"] or rep["slim"]["undercounts"]:
+            raise AssertionError(f"sketch {sketch}: undercounts "
+                                 f"{rep['undercounts']} / "
+                                 f"{rep['slim']['undercounts']}")
+        merges = None
+        for events, batch in ((SKETCH_EVENTS, SKETCH_BATCH), SKETCH_PREFIX):
+            a = SP.run_stream(cfg, hashes[:events], batch=batch, device=dev)
+            b = SP.run_stream(plain, hashes[:events], batch=batch,
+                              device=dev)
+            if merges is None:
+                merges = int(a.merges.sum())
+            for leaf in a._fields:
+                if not torch.equal(getattr(a, leaf), getattr(b, leaf)):
+                    raise AssertionError(f"sketch {sketch}: {leaf} differs "
+                                         f"from the plain version's after "
+                                         f"{events} events in {batch}-row "
+                                         f"batches")
+        gate_cfg = ParamConfig(sketch=sketch, **SKETCH_GATE_CFG)
+        gate = SP.stream_report(gate_cfg, n_keys=SKETCH_GATE[0],
+                                n_events=SKETCH_GATE[1], device=dev)
+        fat_p90, slim_p90 = gate["errCdf"]["p90"], gate["slim"]["errCdf"][
+            "p90"]
+        if gate["slim"]["undercounts"] or slim_p90 > max(2 * fat_p90, 2.0):
+            raise AssertionError(f"sketch {sketch}: the slim gate "
+                                 f"({fat_p90}, {slim_p90})")
+        ratio = rep["slim"]["meanRelErr"] / rep["meanRelErr"]
+        out[sketch] = dict(report=rep, launches=launches, batches=batches,
+                           report_s=report_s, merges=merges,
+                           gate=dict(fat_p90=fat_p90, slim_p90=slim_p90,
+                                     keys=SKETCH_GATE[0],
+                                     events=SKETCH_GATE[1],
+                                     width=SKETCH_GATE_CFG["width"]),
+                           slim_over_fat_mean_rel_err=ratio)
+        log(f"sketch 14c {sketch}: {SKETCH_EVENTS} events over "
+            f"{SKETCH_KEYS} keys in {batches} launches ({report_s:.1f} s); "
+            f"undercounts 0 / 0; fat error CDF {rep['errCdf']}, mean "
+            f"relative {rep['meanRelErr']:.3f}; slim CDF "
+            f"{rep['slim']['errCdf']}, mean relative "
+            f"{rep['slim']['meanRelErr']:.3f} ({ratio:.2f}x the fat); "
+            f"states bitwise equal to the plain versions' at "
+            f"{SKETCH_BATCH} and {SKETCH_PREFIX[1]} rows; slim gate at "
+            f"width {SKETCH_GATE_CFG['width']}, {SKETCH_GATE[0]} keys: p90 "
+            f"{slim_p90} vs fat {fat_p90}")
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
+CODEC_ROWS = (64, 1024, None)  # None: the most one frame carries (5,040)
+CODEC_REPS = 200
+
+
+def numpy_batch_req(P, payload):
+    """The reference's numpy decode of a BATCH_FLOW request payload (its
+    fallback when the native library is missing)."""
+    xid, _ = P._HEAD.unpack_from(payload, 0)
+    (n,) = P._BATCH_N.unpack_from(payload, P._HEAD.size)
+    off = P._HEAD.size + P._BATCH_N.size
+    rows = np.frombuffer(payload, dtype=P.BATCH_REQ_DTYPE, count=n,
+                         offset=off)
+    return (xid, rows["flow_id"].astype(np.int64),
+            rows["count"].astype(np.int32), rows["prio"].astype(bool))
+
+
+def numpy_batch_rsp(P, xid, status, remaining, wait_ms):
+    """The reference's numpy encode of a BATCH_FLOW response frame."""
+    n = status.shape[0]
+    rows = np.empty(n, dtype=P.BATCH_RSP_DTYPE)
+    rows["status"] = status
+    rows["remaining"] = remaining
+    rows["wait_ms"] = wait_ms
+    return (P._LEN.pack(P._HEAD.size + P._BATCH_N.size
+                        + n * P.BATCH_RSP_DTYPE.itemsize)
+            + P._HEAD.pack(xid, P.MsgType.BATCH_FLOW)
+            + P._BATCH_N.pack(n) + rows.tobytes())
+
+
+def control_codec():
+    """14d. The port's BATCH_FLOW codec (``protocol.decode_batch_request``
+    / ``encode_batch_response``, the native library) against the
+    reference's numpy bodies at ``CODEC_ROWS`` rows a frame: equal arrays
+    and bytes, and the median host time of each over ``CODEC_REPS``
+    calls, the two interleaved in blocks of ten."""
+    from sentinel_tpu_torch.cluster import protocol as P
+
+    rng = np.random.default_rng(14)
+    out = {}
+    for n in CODEC_ROWS:
+        n = n or P.MAX_BATCH_PER_FRAME
+        ids = rng.integers(-(2**63), 2**63 - 1, size=n, dtype=np.int64)
+        cnt = rng.integers(1, 100, size=n).astype(np.int32)
+        pri = rng.integers(0, 2, size=n).astype(np.uint8)
+        payload = P.encode_batch_request(9, ids, cnt, pri)[2:]
+        st = rng.integers(-2, 5, size=n).astype(np.int8)
+        rem = rng.integers(0, 2**31 - 1, size=n).astype(np.int32)
+        wt = rng.integers(0, 10_000, size=n).astype(np.int32)
+        a, b = P.decode_batch_request(payload), numpy_batch_req(P, payload)
+        if a[0] != b[0] or any(x.dtype != y.dtype or not np.array_equal(x, y)
+                               for x, y in zip(a[1:], b[1:])):
+            raise AssertionError(f"codec: {n}-row decode differs from "
+                                 f"numpy's")
+        if (P.encode_batch_response(9, st, rem, wt)
+                != numpy_batch_rsp(P, 9, st, rem, wt)):
+            raise AssertionError(f"codec: {n}-row encode differs from "
+                                 f"numpy's")
+        calls = {
+            "decode_native": lambda: P.decode_batch_request(payload),
+            "decode_numpy": lambda: numpy_batch_req(P, payload),
+            "encode_native": lambda: P.encode_batch_response(9, st, rem, wt),
+            "encode_numpy": lambda: numpy_batch_rsp(P, 9, st, rem, wt),
+        }
+        times = {k: [] for k in calls}
+        for _ in range(CODEC_REPS // 10):
+            for key, call in calls.items():
+                for _ in range(10):
+                    t = time.perf_counter_ns()
+                    call()
+                    times[key].append(time.perf_counter_ns() - t)
+        us = {k: float(np.median(v)) / 1e3 for k, v in times.items()}
+        out[n] = us
+        log(f"codec 14d {n} rows: decode native {us['decode_native']:.2f} "
+            f"us vs numpy {us['decode_numpy']:.2f} us; encode native "
+            f"{us['encode_native']:.2f} us vs numpy {us['encode_numpy']:.2f}"
+            f" us (medians of {CODEC_REPS}); arrays and bytes equal")
+    return out
+
+
 def window_less_bucket_ms(svc) -> int:
     """A service's window less one bucket, in ms."""
     c = svc.config
@@ -4059,6 +4778,7 @@ def main() -> int:
     move = phase_move(torch, dev)
     hier = phase_hier(torch, dev)
     sdk = phase_sdk(torch, dev)
+    control = phase_control(torch, dev)
     service[SIZES[-1]].update(profiled_pulls())
     for sketch, kernels_a_call in profiled_params().items():
         param_service[sketch]["profiled"] = kernels_a_call
@@ -4087,6 +4807,10 @@ def main() -> int:
             "decide_launches"],
         "launches_hier_phase": hier["lockstep"]["decide_launches"],
         "launches_sdk_phase": sdk["lockstep"]["decide_launches"],
+        "launches_control_phase": (
+            control["rls"]["in_process"]["launches"]
+            + control["rls"]["shm"]["launches"]
+            + control["routing"]["lockstep"]["decide_launches"]),
     }]
     for sketch, name, line in (("cms", "cms_decide_update", 49),
                                ("salsa", "salsa_decide_update", 37)):
@@ -4117,6 +4841,10 @@ def main() -> int:
                                     if sketch == "cms" else 0),
             "launches_sdk_phase": (sdk["lockstep"]["cms_launches"]
                                    if sketch == "cms" else 0),
+            "launches_control_phase": (
+                control["sketch"][sketch]["launches"]
+                + (control["routing"]["lockstep"]["param_launches"]
+                   if sketch == "cms" else 0)),
             "parity_steps": param_parity[sketch][1],
             "by_n": {str(n): v for n, v in param_timing[sketch].items()},
         })
@@ -4146,6 +4874,7 @@ def main() -> int:
                     "move": move,
                     "hier": hier,
                     "sdk": sdk,
+                    "control": control,
                     "gpu": ident}))
     log(ident)
     log(json.dumps({"kernels": kernels}))

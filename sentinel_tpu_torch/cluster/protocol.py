@@ -443,19 +443,29 @@ def encode_batch_request(
     )
 
 
+_NATIVE = None
+
+
+def _native_codec():
+    """The native batch codec (:mod:`sentinel_tpu_torch.native.lib`),
+    built and loaded at the first BATCH_FLOW decode or encode, never at
+    import. Unlike the reference, nothing falls back to numpy: a library
+    that cannot be built or loaded raises here."""
+    global _NATIVE
+    if _NATIVE is None:
+        from sentinel_tpu_torch.native import lib as native_lib
+
+        native_lib.load()
+        _NATIVE = native_lib
+    return _NATIVE
+
+
 def decode_batch_request(payload: bytes):
     """BATCH_FLOW payload → (xid, flow_ids int64[N], counts int32[N],
-    prios bool[N]). Caller has already checked the type byte."""
-    xid, _ = _HEAD.unpack_from(payload, 0)
-    (n,) = _BATCH_N.unpack_from(payload, _HEAD.size)
-    off = _HEAD.size + _BATCH_N.size
-    rows = np.frombuffer(payload, dtype=BATCH_REQ_DTYPE, count=n, offset=off)
-    return (
-        xid,
-        rows["flow_id"].astype(np.int64),
-        rows["count"].astype(np.int32),
-        rows["prio"].astype(bool),
-    )
+    prios bool[N]). Caller has already checked the type byte. The row loop
+    runs in the native codec with the GIL released; a malformed frame
+    raises ValueError."""
+    return _native_codec().batch_decode_req(payload)
 
 
 def decode_batch_request_into(payload, ids_out, counts_out, prios_out, at=0):
@@ -605,19 +615,9 @@ def decode_batch_deadline(payload: bytes) -> int:
 
 
 def encode_batch_response(xid: int, status, remaining, wait_ms) -> bytes:
-    status = np.asarray(status, dtype=np.int8)
-    n = status.shape[0]
-    rows = np.empty(n, dtype=BATCH_RSP_DTYPE)
-    rows["status"] = status
-    rows["remaining"] = np.asarray(remaining, dtype=np.int32)
-    rows["wait_ms"] = np.asarray(wait_ms, dtype=np.int32)
-    payload_len = _HEAD.size + _BATCH_N.size + n * BATCH_RSP_DTYPE.itemsize
-    return (
-        _LEN.pack(payload_len)
-        + _HEAD.pack(xid, MsgType.BATCH_FLOW)
-        + _BATCH_N.pack(n)
-        + rows.tobytes()
-    )
+    """One BATCH_FLOW response frame (length prefix included), encoded by
+    the native codec."""
+    return _native_codec().batch_encode_rsp(xid, status, remaining, wait_ms)
 
 
 def batch_responses_size(counts) -> int:

@@ -80,12 +80,11 @@ _STANDBY = int(TokenStatus.STANDBY)
 
 
 def native_available() -> bool:
-    """Build (first use) and load the native library. Returns True; a
-    failed build or load raises with the compiler's output."""
+    """The reference's name for :func:`native.lib.available`: True once the
+    library is built and loaded; a failed build or load raises."""
     from sentinel_tpu_torch.native import lib as native_lib
 
-    native_lib.load()
-    return True
+    return native_lib.available()
 
 
 def _refuse(what: str, item: str) -> None:

@@ -147,6 +147,10 @@ class RuleIndex:
             self.pending_clear.extend(freed)
         return freed
 
+    def lookup(self, flow_id: int) -> int:
+        """Slot for a flow_id, or -1 (-> NO_RULE verdict)."""
+        return self.slot_of.get(flow_id, -1)
+
 
 def build_rule_columns(
     config: EngineConfig,

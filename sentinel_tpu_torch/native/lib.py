@@ -8,9 +8,12 @@ library; it never loads the JAX package's library. Unlike the reference,
 nothing here degrades to a pure-Python path: a failed build or load raises
 with the compiler's output. :class:`Frontdoor` is the epoll TCP door,
 :class:`ShmDoor` the shared-memory ring door for co-located clients,
-:class:`ShmRingClient` the client half of one ring segment, and
+:class:`ShmRingClient` the client half of one ring segment,
 :class:`NativeWindow` the lock-free sliding window behind the local
-engine's statistic nodes (``local/stat.py``).
+engine's statistic nodes (``local/stat.py``), :class:`NativeTokenBuckets`
+and :class:`NativePacerArray` the hot-param buckets and pacers, and
+:func:`batch_decode_req` / :func:`batch_encode_rsp` the BATCH_FLOW codec
+(:func:`sentinel_tpu_torch.cluster.protocol._native_codec`).
 """
 
 from __future__ import annotations
@@ -45,6 +48,32 @@ def _configure(lib: ctypes.CDLL) -> ctypes.CDLL:
         "sn_stat_event": ([P, P, I64, I32, F64], None),
         "sn_stat_rt_success": ([P, P, I64, F64, F64], None),
         "sn_stat_touched_sum": ([P, P, P, I64, I32], F64),
+        # hot-param token buckets and leaky-bucket pacers
+        "sn_tb_create": ([I32], P),
+        "sn_tb_destroy": ([P], None),
+        "sn_tb_reset": ([P, I32], None),
+        "sn_tb_try_acquire": ([P, I32, I64, I32, F64, F64, I64], I32),
+        "sn_pacer_create": ([I32], P),
+        "sn_pacer_destroy": ([P], None),
+        "sn_pacer_reset": ([P, I32], None),
+        "sn_pacer_try_pass": ([P, I32, I64, I32, F64, I64], I64),
+        # the BATCH_FLOW codec
+        "sn_batch_decode_req": (
+            [
+                ctypes.c_char_p, I32, ctypes.POINTER(I32),
+                ctypes.POINTER(I64), ctypes.POINTER(I32),
+                ctypes.POINTER(ctypes.c_uint8), I32,
+            ],
+            I32,
+        ),
+        "sn_batch_encode_rsp": (
+            [
+                I32, I32, ctypes.POINTER(ctypes.c_int8),
+                ctypes.POINTER(I32), ctypes.POINTER(I32),
+                ctypes.POINTER(ctypes.c_uint8), I32,
+            ],
+            I32,
+        ),
         # native TCP front door (sentinel_frontdoor.cpp)
         "sn_fd_create": ([ctypes.c_char_p, I32, I32], P),
         "sn_fd_port": ([P], I32),
@@ -81,6 +110,8 @@ def _configure(lib: ctypes.CDLL) -> ctypes.CDLL:
         "sn_fd_stats": ([P, ctypes.POINTER(ctypes.c_uint64)], None),
         "sn_fd_set_idle_ttl": ([P, I64], None),
         "sn_fd_close_conn": ([P, I32, I32], None),
+        "sn_fd_echo_start": ([P], None),
+        "sn_fd_echo_stop": ([P], None),
         # shared-memory ring door (sentinel_shm.cpp)
         "sn_shm_create": ([ctypes.c_char_p, I64, I32], P),
         "sn_shm_stop": ([P], None),
@@ -115,12 +146,18 @@ def _configure(lib: ctypes.CDLL) -> ctypes.CDLL:
         ),
         "sn_shm_close_conn": ([P, I32, I32], None),
         "sn_shm_stats": ([P, ctypes.POINTER(ctypes.c_uint64)], None),
+        "sn_shm_echo_start": ([P], None),
+        "sn_shm_echo_stop": ([P], None),
         "sn_shm_client_create": ([ctypes.c_char_p, I32, I32, I32], P),
         "sn_shm_client_destroy": ([P], None),
         "sn_shm_client_send": ([P, ctypes.c_char_p, I32], I32),
         "sn_shm_client_recv": (
             [P, ctypes.POINTER(ctypes.c_uint8), I32, I32], I32
         ),
+        "sn_shm_client_rtt": (
+            [P, ctypes.c_char_p, I32, I32, ctypes.POINTER(I64)], I32
+        ),
+        "sn_shm_client_fuzz": ([P, ctypes.c_char_p, I32, I32], I32),
         "sn_shm_client_alive": ([P], I32),
     }
     for name, (argtypes, restype) in sig.items():
@@ -141,6 +178,103 @@ def load() -> ctypes.CDLL:
 
             _lib = _configure(ctypes.CDLL(build()))
         return _lib
+
+
+def available() -> bool:
+    """True once the library is built and loaded. Unlike the reference's,
+    it never answers False: a failed build or load raises (:func:`load`)."""
+    load()
+    return True
+
+
+def shm_available() -> bool:
+    """True once the library, which always carries the shared-memory ring
+    door's exports, is built and loaded; a failed build raises."""
+    load()
+    return True
+
+
+def batch_decode_req(payload: bytes):
+    """BATCH_FLOW request payload -> (xid, flow_ids int64[N], counts
+    int32[N], prios bool[N]), the row loop in C with the GIL released;
+    raises ValueError on a malformed frame."""
+    import numpy as np
+
+    lib = load()
+    max_n = max((len(payload) - 7) // 13, 0)
+    xid = ctypes.c_int32()
+    flow_ids = np.empty(max_n, np.int64)
+    counts = np.empty(max_n, np.int32)
+    prios = np.empty(max_n, np.uint8)
+    n = lib.sn_batch_decode_req(
+        payload, len(payload), ctypes.byref(xid),
+        flow_ids.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        counts.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        prios.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+        max_n,
+    )
+    if n < 0:
+        raise ValueError("malformed BATCH_FLOW frame")
+    return (
+        int(xid.value), flow_ids[:n], counts[:n], prios[:n].astype(bool)
+    )
+
+
+def batch_encode_rsp(xid: int, status, remaining, wait_ms) -> bytes:
+    """(status int8[N], remaining int32[N], wait int32[N]) -> the full
+    response frame's bytes (length prefix included)."""
+    import numpy as np
+
+    lib = load()
+    status = np.ascontiguousarray(status, np.int8)
+    remaining = np.ascontiguousarray(remaining, np.int32)
+    wait_ms = np.ascontiguousarray(wait_ms, np.int32)
+    n = status.shape[0]
+    out = np.empty(2 + 7 + n * 9, np.uint8)
+    wrote = lib.sn_batch_encode_rsp(
+        xid, n,
+        status.ctypes.data_as(ctypes.POINTER(ctypes.c_int8)),
+        remaining.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        wait_ms.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+        out.shape[0],
+    )
+    if wrote < 0:
+        raise ValueError("batch too large for one frame")
+    return out[:wrote].tobytes()
+
+
+def _wait_batch(door, wait_fn, timeout_ms: int, max_n: Optional[int]):
+    """One door's pull into its thread's buffers (``sn_fd_wait_batch`` or
+    ``sn_shm_wait_batch``, which share a signature)."""
+    from sentinel_tpu_torch.cluster.protocol import MAX_BATCH_PER_FRAME
+
+    if max_n is None:
+        max_n = door.arena_cap
+    max_n = min(max(int(max_n), MAX_BATCH_PER_FRAME), door.arena_cap)
+    b = door._bufs()
+    n_frames = ctypes.c_int32()
+    n = wait_fn(
+        door._h, timeout_ms,
+        door._ptr(b["ids"], ctypes.c_int64),
+        door._ptr(b["counts"], ctypes.c_int32),
+        door._ptr(b["prios"], ctypes.c_uint8),
+        max_n,
+        door._ptr(b["f_fd"], ctypes.c_int32),
+        door._ptr(b["f_gen"], ctypes.c_int32),
+        door._ptr(b["f_xid"], ctypes.c_int32),
+        door._ptr(b["f_n"], ctypes.c_int32),
+        door._ptr(b["f_type"], ctypes.c_uint8),
+        door.arena_cap, ctypes.byref(n_frames),
+    )
+    if n <= 0:
+        return None
+    k = n_frames.value
+    frames = (
+        b["f_fd"][:k], b["f_gen"][:k], b["f_xid"][:k], b["f_n"][:k],
+        b["f_type"][:k],
+    )
+    return b["ids"][:n], b["counts"][:n], b["prios"][:n].astype(bool), frames
 
 
 class Frontdoor:
@@ -177,12 +311,46 @@ class Frontdoor:
             raise OSError(f"native front door failed to bind {host}:{port}")
         self.port = int(lib.sn_fd_port(self._h))
         self.arena_cap = arena_cap
+        # :meth:`wait_batch`'s buffers are per thread: dispatcher threads may
+        # pull at once, and each result stays valid until that thread's next
+        # call
+        self._tls = threading.local()
         self._ctrl_buf = ctypes.create_string_buffer(70000)
         self._ctrl_lock = threading.Lock()
         self._stopped = False
 
+    def _bufs(self):
+        import numpy as np
+
+        b = getattr(self._tls, "bufs", None)
+        if b is None:
+            cap = self.arena_cap
+            b = dict(
+                ids=np.empty(cap, np.int64),
+                counts=np.empty(cap, np.int32),
+                prios=np.empty(cap, np.uint8),
+                f_fd=np.empty(cap, np.int32),
+                f_gen=np.empty(cap, np.int32),
+                f_xid=np.empty(cap, np.int32),
+                f_n=np.empty(cap, np.int32),
+                f_type=np.empty(cap, np.uint8),
+            )
+            self._tls.bufs = b
+        return b
+
     def _ptr(self, arr, ctype):
         return arr.ctypes.data_as(ctypes.POINTER(ctype))
+
+    def wait_batch(self, timeout_ms: int = 100, max_n: Optional[int] = None):
+        """Block for data-plane requests. Returns ``None`` on timeout, else
+        ``(ids, counts, prios, frames)`` where the first three are int64/
+        int32/bool views in request order (valid until this thread's next
+        call) and ``frames`` is the per-frame metadata to hand back to
+        :meth:`submit`. ``max_n`` bounds one pull (whole frames only, so it
+        is clamped to at least one max-size frame); the remainder stays
+        queued for the next pull."""
+        return _wait_batch(self, self._lib.sn_fd_wait_batch, timeout_ms,
+                           max_n)
 
     def wait_batch_into(self, staging: dict, timeout_ms: int = 100,
                         max_n: Optional[int] = None):
@@ -323,6 +491,15 @@ class Frontdoor:
         }
 
 
+    def echo_start(self) -> None:
+        """Bench and test helper: a pure-C wait -> all-GRANTED submit loop,
+        the TCP mirror of :meth:`ShmDoor.echo_start`, so both doors'
+        transport cost is measured behind one serving loop."""
+        self._lib.sn_fd_echo_start(self._h)
+
+    def echo_stop(self) -> None:
+        self._lib.sn_fd_echo_stop(self._h)
+
     def stop(self) -> None:
         if not self._stopped:
             self._stopped = True
@@ -375,11 +552,19 @@ class ShmDoor:
         self.dir = shm_dir
         self.arena_cap = arena_cap
         self.port = -1  # no TCP endpoint; keeps door-agnostic logging sane
+        self._tls = threading.local()
         self._ctrl_buf = ctypes.create_string_buffer(70000)
         self._ctrl_lock = threading.Lock()
         self._stopped = False
 
     _ptr = Frontdoor._ptr
+    _bufs = Frontdoor._bufs
+
+    def wait_batch(self, timeout_ms: int = 100, max_n: Optional[int] = None):
+        """:meth:`Frontdoor.wait_batch` over the rings."""
+        return _wait_batch(self, self._lib.sn_shm_wait_batch, timeout_ms,
+                           max_n)
+
     # identical pull/answer surface — the ctypes marshaling only differs in
     # the export name, so rebind the TCP door's methods over sn_shm_*
     def wait_batch_into(self, staging: dict, timeout_ms: int = 100,
@@ -486,6 +671,13 @@ class ShmDoor:
             "shm_req_slots_total": int(out[9]),
         }
 
+    def echo_start(self) -> None:
+        """Bench and test helper: a pure-C wait -> all-GRANTED submit loop,
+        for measuring the raw transport round trip with no Python in it."""
+        self._lib.sn_shm_echo_start(self._h)
+
+    def echo_stop(self) -> None:
+        self._lib.sn_shm_echo_stop(self._h)
 
     def stop(self) -> None:
         if not self._stopped:
@@ -567,6 +759,28 @@ class ShmRingClient:
             raise ConnectionResetError("shm door dropped this segment")
         return None
 
+    def rtt_probe(self, frame: bytes, iters: int = 1000):
+        """Per-iteration transport round-trip times in ns (C-side send and
+        spin-receive loop: no ctypes or codec cost inside the timed
+        region)."""
+        import numpy as np
+
+        payload = frame[2:]
+        out = np.zeros(iters, np.int64)
+        done = self._lib.sn_shm_client_rtt(
+            self._h, payload, len(payload), iters,
+            out.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        )
+        return out[:max(done, 0)]
+
+    def fuzz(self, data: bytes, stage: int) -> bool:
+        """Test hook: torn or hostile slot writes (``sn_shm_client_fuzz``:
+        stage 0 stages a full payload and its length unpublished, 1 half a
+        payload, 2 publishes a length beyond the slot, 3 publishes
+        ``data`` as is)."""
+        return bool(
+            self._lib.sn_shm_client_fuzz(self._h, data, len(data), stage)
+        )
 
     def alive(self) -> bool:
         return bool(self._lib.sn_shm_client_alive(self._h))
@@ -644,3 +858,79 @@ class NativeWindow:
 
     def take_matured(self, now: int, chan: int = 0) -> float:
         return self._lib.sn_window_take_matured(self._h, now, chan)
+
+
+class NativeTokenBuckets:
+    """Array of token buckets (hot-param local QPS mode)."""
+
+    __slots__ = ("_lib", "_h", "n_slots")
+
+    def __init__(self, n_slots: int):
+        lib = load()
+        self._lib = lib
+        self._h = lib.sn_tb_create(n_slots)
+        if not self._h:
+            raise MemoryError("sn_tb_create failed")
+        self.n_slots = n_slots
+
+    def __del__(self):
+        h = getattr(self, "_h", None)
+        if h:
+            self._lib.sn_tb_destroy(h)
+            self._h = None
+
+    def reset(self, slot: int) -> None:
+        self._lib.sn_tb_reset(self._h, slot)
+
+    def try_acquire(
+        self,
+        slot: int,
+        now: int,
+        acquire: int,
+        count: float,
+        burst: float,
+        interval_ms: int,
+    ) -> bool:
+        return bool(
+            self._lib.sn_tb_try_acquire(
+                self._h, slot, now, acquire, count, burst, interval_ms
+            )
+        )
+
+
+class NativePacerArray:
+    """Array of leaky-bucket pacers (RateLimiter behavior)."""
+
+    __slots__ = ("_lib", "_h", "n_slots")
+
+    def __init__(self, n_slots: int):
+        lib = load()
+        self._lib = lib
+        self._h = lib.sn_pacer_create(n_slots)
+        if not self._h:
+            raise MemoryError("sn_pacer_create failed")
+        self.n_slots = n_slots
+
+    def __del__(self):
+        h = getattr(self, "_h", None)
+        if h:
+            self._lib.sn_pacer_destroy(h)
+            self._h = None
+
+    def reset(self, slot: int) -> None:
+        self._lib.sn_pacer_reset(self._h, slot)
+
+    def try_pass(
+        self,
+        slot: int,
+        now: int,
+        acquire: int,
+        count_per_sec: float,
+        max_queue_ms: int,
+    ) -> int:
+        """wait-ms to sleep (0 = immediate) or -1 = block."""
+        return int(
+            self._lib.sn_pacer_try_pass(
+                self._h, slot, now, acquire, count_per_sec, max_queue_ms
+            )
+        )

@@ -83,3 +83,33 @@ def slim_poststep(config, state, rule_slot, idx, idx_slim, valid,
         + idx_slim.to(torch.int64)
     state.slim.view(-1).scatter_reduce_(0, flat.reshape(-1),
                                         vals.reshape(-1), reduce="amax")
+
+
+def host_array(t) -> np.ndarray:
+    """A tensor (on any device) or an array, as a host array."""
+    return t.cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+
+
+def slim_estimate_np(config, state, value_hashes: np.ndarray, now: int):
+    """Host-side pieces of the windowed slim estimate (parity harness and
+    drills): ``(idx [N, Ds], starts [B], slim [P, B, Ds, Ws], live [B])``,
+    authority flags ignored, so the twin is queried as a standalone
+    sketch; :func:`slim_query_np` takes the min over lanes for one slot."""
+    idx = slim_indices(config, value_hashes)  # [N, Ds]
+    starts = host_array(state.starts)
+    slim = host_array(state.slim)  # [P, B, Ds, Ws]
+    age = int(now) - starts
+    live = (age >= 0) & (age < config.interval_ms)  # [B]
+    return idx, starts, slim, live
+
+
+def slim_query_np(config, state, slot: int, value_hashes: np.ndarray,
+                  now: int) -> np.ndarray:
+    """``[N] int64 -> [N] int64`` standalone slim estimates for one slot."""
+    idx, _starts, slim, live = slim_estimate_np(
+        config, state, value_hashes, now
+    )
+    row = slim[int(slot)]  # [B, Ds, Ws]
+    winsum = (row * live[:, None, None]).sum(axis=0)  # [Ds, Ws]
+    per_d = winsum[np.arange(config.slim_depth)[None, :], idx]  # [N, Ds]
+    return per_d.min(axis=1)

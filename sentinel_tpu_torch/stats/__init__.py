@@ -11,8 +11,10 @@ from sentinel_tpu_torch.stats.window import (
     window_sum,
     window_sum_all,
 )
+from sentinel_tpu_torch.stats.events import Event
 
 __all__ = [
+    "Event",
     "NEVER",
     "WindowSpec",
     "WindowState",

@@ -269,6 +269,12 @@ def window_sum_all(spec: WindowSpec, ws: WindowState, now: int):
     )
 
 
+def avg_qps(spec: WindowSpec, total: torch.Tensor) -> torch.Tensor:
+    """Per-second rate from a window sum (``StatisticNode.passQps`` divides
+    by ``IntervalProperty.INTERVAL/1000``), in float32."""
+    return total.to(torch.float32) * (1000.0 / spec.interval_ms)
+
+
 def rebase(ws: WindowState, delta_ms: int) -> WindowState:
     """Shift the engine epoch forward by ``delta_ms``, in place (NEVER stays
     NEVER)."""

@@ -7,8 +7,10 @@ door has served a namespace move (MOVE_BEGIN, MOVE_STATE, MOVE_COMMIT from
 the port's ``MoveCoordinator``); and after the asyncio door has served the
 token client's frames and a share agent's hierarchy frames; and after the
 local engine built its native window and ran ``entry`` against an embedded
-service and a ``FailoverTokenClient`` walked a dead endpoint to a port door.
-The subprocesses write their stat logs into the test's temporary
+service and a ``FailoverTokenClient`` walked a dead endpoint to a port door;
+and after the Envoy RLS service answered a request through the native
+codec and a ``RoutingTokenClient`` followed a namespace MOVE between two
+port doors. The subprocesses write their stat logs into the test's temporary
 directory."""
 
 import os
@@ -57,7 +59,9 @@ def test_port_modules_import_without_jax(tmp_path):
                 "local.context", "local.chain", "local.sph", "local.flow",
                 "local.degrade", "local.authority", "local.system_adaptive",
                 "local.param", "cluster.api", "ha.endpoints", "ha.fallback",
-                "ha.failover"):
+                "ha.failover", "stats.events", "sketch.parity",
+                "cluster.namespaces", "cluster.routing",
+                "cluster.envoy_rls"):
         assert f"sentinel_tpu_torch.{mod}" in names, mod
     code = (
         "import importlib, sys\n"
@@ -248,6 +252,7 @@ def _port_sources():
     yield os.path.join(REPO, "tests", "torch_door_check.py")
     yield os.path.join(REPO, "tests", "torch_repl_check.py")
     yield os.path.join(REPO, "tests", "torch_sdk_check.py")
+    yield os.path.join(REPO, "tests", "torch_rls_check.py")
 
 
 def test_port_sources_never_name_jax():
@@ -381,6 +386,76 @@ def test_sdk_entry_and_failover_client_without_jax(tmp_path):
         pytest.skip("no C++ compiler on PATH to build the native library")
     out = subprocess.run(
         [sys.executable, "-I", "-c", _SDK_SERVES.format(repo=REPO)],
+        capture_output=True, text=True, timeout=300, cwd=REPO,
+        env=_env(tmp_path),
+    )
+    assert out.returncode == 0, out.stderr[-2000:]
+
+
+_CONTROL_PLANE_SERVES = """
+import sys
+sys.path.insert(0, {repo!r})
+import numpy as np
+from sentinel_tpu_torch.cluster import envoy_rls as R
+from sentinel_tpu_torch.cluster import protocol as P
+from sentinel_tpu_torch.cluster.rebalance import (
+    MoveCoordinator, ShardMapPublisher,
+)
+from sentinel_tpu_torch.cluster.routing import RoutingTokenClient
+from sentinel_tpu_torch.cluster.server_native import NativeTokenServer
+from sentinel_tpu_torch.cluster.token_service import DefaultTokenService
+from sentinel_tpu_torch.engine import ClusterFlowRule, EngineConfig
+cfg = EngineConfig(max_flows=8, max_namespaces=2, batch_size=64)
+svc = DefaultTokenService(cfg, device="cpu")
+rules = R.EnvoyRlsRuleManager(svc)
+rules.load_rules([R.EnvoyRlsRule("d", (R.RlsDescriptor((("k", "v"),), 1),))])
+rls = R.RlsService(svc, rules)
+req = R.encode_rate_limit_request("d", [[("k", "v")]])
+codes = [R.decode_rate_limit_response(R.encode_rate_limit_response(
+    rls.should_rate_limit(*R.decode_rate_limit_request(req)))).overall_code
+    for _ in range(2)]
+assert codes == [R.CODE_OK, R.CODE_OVER_LIMIT], codes
+payload = P.encode_batch_request(4, np.arange(3, dtype=np.int64))[2:]
+assert P.decode_batch_request(payload)[1].tolist() == [0, 1, 2]
+assert P._NATIVE is not None
+
+src = DefaultTokenService(cfg, device="cpu")
+src.load_rules([ClusterFlowRule(1, 3.0, namespace="m")])
+dst = DefaultTokenService(cfg, device="cpu")
+doors = [NativeTokenServer(s, port=0, idle_ttl_s=None) for s in (src, dst)]
+for d in doors:
+    d.start()
+try:
+    eps = ["127.0.0.1:%d" % d.port for d in doors]
+    pub = ShardMapPublisher()
+    rc = RoutingTokenClient(
+        timeout_ms=10_000, namespace_of={{1: "m"}}, pod_of={{"m": eps[0]}},
+        endpoints={{e: ("127.0.0.1", int(e.split(":")[1])) for e in eps}},
+        shard_maps=pub)
+    assert rc.request_token(1).ok
+    assert MoveCoordinator(src, self_endpoint=eps[0],
+                           publisher=pub).move_namespace("m", eps[1])
+    # the router follows the published map to the destination
+    assert rc.epoch == 1 and rc.request_token(1).ok
+    assert rc._state.pod_of["m"] == eps[1]
+    # the window came along: the count of 3 holds across the move
+    assert [int(rc.request_token(1).status) for _ in range(2)] == [0, 1]
+    rc.close()
+finally:
+    for d in doors:
+        d.stop()
+bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
+             or m == "sentinel_tpu" or m.startswith("sentinel_tpu."))
+assert not bad, bad
+"""
+
+
+def test_rls_and_routing_client_serve_without_jax(tmp_path):
+    if not (shutil.which("g++") or shutil.which("c++")):
+        pytest.skip("no C++ compiler on PATH to build the native library")
+    out = subprocess.run(
+        [sys.executable, "-I", "-c",
+         _CONTROL_PLANE_SERVES.format(repo=REPO)],
         capture_output=True, text=True, timeout=300, cwd=REPO,
         env=_env(tmp_path),
     )

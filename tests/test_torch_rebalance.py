@@ -10,11 +10,10 @@ port, at the reference's ``_CFG`` on both packages' ``ManualClock``:
   window sums, the param move for both sketches with bit-equal next
   verdicts, ``MoveTarget`` staging without mutation; each in lockstep on a
   JAX and a port service, every result compared bitwise;
-- through two port ``NativeTokenServer``s (the reference's asyncio door and
-  routing client are not ported; the reference's ``TokenClient`` talks to
-  the port's doors): a live move, the kill at each protocol step (one
-  owner, bit-equal counters), a dropped MOVE_BEGIN's or MOVE_STATE's abort
-  and retry, and a commit under a device stall.
+- through two port ``NativeTokenServer``s: a live move, the kill at each
+  protocol step (one owner, bit-equal counters), a dropped MOVE_BEGIN's or
+  MOVE_STATE's abort and retry, and a commit under a device stall that the
+  port's ``RoutingTokenClient`` follows.
 
 Across packages: MOVE_STATE blobs byte-equal and export documents equal leaf
 by leaf after one seeded stream (``torch_ha_check``), both sketches; a JAX
@@ -506,8 +505,6 @@ def test_live_move_through_the_asyncio_door(doors, clean_metrics, clocks):
     destination owns the window, and a stale client of the source is
     redirected (the asyncio door names the new owner in the reply)."""
     src_door, dst_door = doors.split("-")
-    if "native" in doors and not native_available():
-        pytest.skip("no native door")
     fid = 101
     svc_src = DefaultTokenService(_CFG, device="cpu")
     svc_dst = DefaultTokenService(_CFG, device="cpu")
@@ -583,8 +580,6 @@ def test_jax_coordinator_moves_into_the_asyncio_door(clean_metrics, clocks):
 # -- two live port doors -----------------------------------------------------
 @pytest.fixture(scope="module")
 def fleet():
-    if not native_available():
-        pytest.skip("no native door")
     with manual_clocks():
         svc_src = DefaultTokenService(_CFG, device="cpu")
         svc_dst = DefaultTokenService(_CFG, device="cpu")
@@ -733,14 +728,40 @@ def test_move_aborts_on_dropped_frame_then_retries_clean(fleet, lost):
 
 
 def test_move_commits_under_device_stall_with_live_traffic(fleet):
-    """A stalling device mid-move: every concurrent request resolves (no
-    raise), a row answered MOVED is re-sent to the destination the shard
-    map names, and the move commits."""
+    """A stalling device mid-move: every concurrent request through the
+    port's ``RoutingTokenClient`` resolves (no raise) without the router
+    degrading to its local fallback, the move commits, the router
+    converges on the destination within one epoch bump (it learns the move
+    from the MOVED answer or the published shard map), and a direct client
+    of the destination is answered OK."""
+    from sentinel_tpu_torch.cluster.routing import RoutingTokenClient
+    from sentinel_tpu_torch.metrics.ha import ha_metrics
+    from sentinel_tpu_torch.ha import (
+        FallbackAction,
+        FallbackRule,
+        LocalFallbackPolicy,
+    )
+
     fid, ns = 104, "w4"
     fleet.svc_src.load_namespace_rules(ns, [_rules(fid, 1000.0, ns)[1]])
     pub = ShardMapPublisher()
     coord = MoveCoordinator(fleet.svc_src, self_endpoint=fleet.src_ep,
                             publisher=pub)
+    policy = LocalFallbackPolicy([FallbackRule(fid, FallbackAction.BLOCK)])
+    host_s, _, port_s = fleet.src_ep.rpartition(":")
+    host_d, _, port_d = fleet.dst_ep.rpartition(":")
+    rc = RoutingTokenClient(
+        timeout_ms=2000,
+        namespace_of={fid: ns},
+        pod_of={ns: fleet.src_ep},
+        endpoints={
+            fleet.src_ep: (host_s, int(port_s)),
+            fleet.dst_ep: (host_d, int(port_d)),
+        },
+        fallback=policy,
+        shard_maps=pub,
+    )
+    epoch0 = rc.epoch
     move = {}
 
     def mover():
@@ -749,18 +770,15 @@ def test_move_commits_under_device_stall_with_live_traffic(fleet):
     c = _client(fleet.src_ep, ns)
     c2 = _client(fleet.dst_ep, ns)
     try:
-        assert c.request_token(fid).ok
+        assert rc.request_token(fid).ok
+        degraded0 = ha_metrics().fallback_totals().get("moved_degraded", 0)
         chaos.arm("device_stall:ms=50,n=8", seed=3)
         t = threading.Thread(target=mover)
         t.start()
-        raised, statuses, redirects = 0, [], 0
+        raised, statuses = 0, []
         for _ in range(30):
             try:
-                r = c.request_token(fid)
-                if r.status == JStatus.MOVED:
-                    redirects += 1
-                    r = c2.request_token(fid)
-                statuses.append(r.status)
+                statuses.append(rc.request_token(fid).status)
             except Exception:
                 raised += 1
             time.sleep(0.01)
@@ -770,7 +788,16 @@ def test_move_commits_under_device_stall_with_live_traffic(fleet):
         assert raised == 0 and len(statuses) == 30
         assert set(statuses) <= {JStatus.OK, JStatus.BLOCKED,
                                  JStatus.NO_RULE_EXISTS}
+        # no answer came from the local fallback: a destination that raised
+        # or answered MOVED again would have been degraded to BLOCKED
+        assert (ha_metrics().fallback_totals().get("moved_degraded", 0)
+                == degraded0)
+        assert policy.stats()["blocked"] == 0
         assert pub.current().epoch == 1
+        assert rc.epoch - epoch0 == 1  # converged within ONE epoch bump
+        assert rc._state.pod_of[ns] == fleet.dst_ep
+        assert rc.request_token(fid).status == JStatus.OK
+        # a client that did not follow still gets the redirect
         r = c.request_token(fid)
         assert (r.status, r.remaining) == (JStatus.MOVED, 1)
         assert c2.request_token(fid).status == JStatus.OK
@@ -780,3 +807,4 @@ def test_move_commits_under_device_stall_with_live_traffic(fleet):
         chaos.disarm()
         c.close()
         c2.close()
+        rc.close()
