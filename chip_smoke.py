@@ -206,7 +206,28 @@ Builds the port's CUDA kernels from ``sentinel_tpu_torch/csrc`` (one
    report's error CDF; 14d, the BATCH_FLOW codec (the native library)
    equal to the reference's numpy bodies at 64, 1,024 and 5,040 rows a
    frame, with the host time of each;
-15. prints the timings, the card's name and power limit, one
+15. the adapters and the data sources (``phase_adapters``,
+   ``tests/torch_adapter_check.py``): 3,000 routes behind the port's
+   gateway over its WSGI and ASGI middleware, ``@sentinel_resource``
+   functions with 256 cluster-mode param rules on phase 5's sketch, every
+   6th route in cluster mode on phase 3's flows, gateway rules on route
+   ids and API definitions (client IP, header and URL parameter items,
+   every match strategy), every rule read from files by the port's
+   ``FileRefreshableDataSource`` (the token server's 100,000 flow rules
+   through a property listener). 15a: 4,000 seeded requests on a manual
+   clock with the card service embedded, then with its torch-ops twin:
+   every response (status, headers, body) and every node's counters
+   equal, one decide launch per cluster flow check and one count-min
+   launch per cluster param check, every dispatch sync-free, no exception
+   raised by the service; halfway, three rule files pushed (1% of the
+   cluster rules lowered, a gateway rule changed, an API definition
+   added): the rule epoch one up, the pushed routes' 429s up, no failed
+   refresh. 15b: the WSGI stack behind ``wsgiref``'s threading server, 8
+   client threads in a child process for 3 s with the cluster rules and
+   with the same rules local (requests/s, p50 / p99 by route class), then
+   the cluster rule file polled on its data source's thread: the time
+   from a write to the first answer that shows it;
+16. prints the timings, the card's name and power limit, one
    ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
 
 Any failed check raises and exits non-zero. With no CUDA device, or run from
@@ -4595,6 +4616,421 @@ def control_codec():
     return out
 
 
+ADAPTER_ROUTES = 3000  # routes behind the gateway, every 6th in cluster mode
+ADAPTER_REQUESTS = 4000  # 15a's seeded stream, on the manual clock
+ADAPTER_SEED = 151
+ADAPTER_THREADS = 8
+ADAPTER_SECONDS = 3.0  # 15b's timed runs on the system clock, each
+ADAPTER_PLAN = 4000  # requests a client thread cycles through in 15b
+ADAPTER_POLL_S = 0.2  # 15b's polling data source
+ADAPTER_WRITES = 6  # 15b's rule file writes, each awaited in the answers
+ADAPTER_RULES = os.path.join(HERE, "sentinel_tpu_torch", "build",
+                             "adapter_rules")  # the phase's rule files
+
+
+def phase_adapters(torch, dev):
+    """Phase 15: the adapters and the data sources on the card. 15a: the
+    seeded HTTP stream of ``tests/torch_adapter_check.py`` through the
+    port's gateway over WSGI and ASGI middleware and ``@sentinel_resource``
+    functions, every rule read from files by ``FileRefreshableDataSource``
+    (the token server's 100,000 flow rules through a property listener),
+    with the card service embedded and then its torch-ops twin from the
+    same manual clock: every response and node counter equal, one decide
+    launch per cluster flow check and one count-min launch per cluster
+    param check, every dispatch sync-free, no service exception, three
+    files pushed halfway (the rule epoch one up, the pushed routes'
+    answers changed), no failed refresh. 15b: the WSGI stack behind
+    ``wsgiref``'s threading server, 8 client threads in a child process
+    for 3 s a run (cluster rules, and the same rules local), and the time
+    from a rule file's write to the first answer that shows it, the file
+    polled by its data source's thread."""
+    import torch_adapter_check as AC
+
+    from sentinel_tpu_torch.core import clock
+    from sentinel_tpu_torch.datasource import base as ds_base
+
+    t_phase = time.perf_counter()
+    root = ADAPTER_RULES
+    shutil.rmtree(root, ignore_errors=True)
+    P = AC.package("sentinel_tpu_torch")
+    # 15a's clock: a minute boundary two minutes back, as phase 13's
+    t0_ms = int(time.time() * 1000) // 60_000 * 60_000 - 120_000
+    mc = clock.ManualClock(t0_ms)
+    prev = clock.set_clock(mc)
+    try:
+        card, param_flows = sdk_service(dev)
+        lay = AC.layout(ADAPTER_ROUTES,
+                        np.random.default_rng(ADAPTER_SEED).permutation(F),
+                        param_flows)
+        out = {"lockstep": adapter_lockstep(torch, dev, AC, P, card, lay,
+                                            mc, root)}
+        clock.set_clock(clock.SystemClock())
+        out["timed"] = adapter_timed(AC, P, card, lay, root)
+        failures = ds_base.refresh_failure_totals()
+        if failures:
+            raise AssertionError(f"adapters: failed refreshes {failures}")
+    finally:
+        clock.set_clock(prev)
+        AC.reset(P)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"adapter phase: {out['phase_s']:.1f} s ({gpu_identity()})")
+    return out
+
+
+def adapter_lockstep(torch, dev, AC, P, card, lay, mc, root) -> dict:
+    """15a (see ``phase_adapters``)."""
+    import torch_sdk_check as SDK
+
+    from sentinel_tpu_torch.datasource import base as ds_base
+    from sentinel_tpu_torch.ops import cms_cuda
+    from sentinel_tpu_torch.ops import decide_cuda as K
+
+    t0_ms = mc.now_ms()
+    twin, _ = sdk_service(dev, twin=True)
+    docs = AC.rule_docs(lay, F, NS)
+    steps = AC.stream(np.random.default_rng(ADAPTER_SEED + 1), lay,
+                      ADAPTER_REQUESTS)
+    after = AC.push(docs, lay, steps, np.random.default_rng(ADAPTER_SEED + 2))
+    runs = {}
+    for name, svc in (("card", card), ("twin", twin)):
+        AC.reset(P)
+        mc.set_ms(t0_ms)
+        rec = Recorded(svc)
+        P.api.set_embedded_server(rec)
+        rule_dir = os.path.join(root, name)
+        AC.write_rules(P, rule_dir, docs)
+        t_load = time.perf_counter()
+        srcs = AC.open_sources(
+            P, rule_dir, lambda rules, svc=svc: svc.load_rules(
+                rules, ns_max_qps=1e9))
+        load_s = time.perf_counter() - t_load
+        stacks = AC.build_stacks(P, lay)
+        epochs, push_s = [], []
+
+        def at_half(svc=svc, rule_dir=rule_dir, srcs=srcs):
+            AC.write_rules(P, rule_dir, after, AC.PUSHED_FILES)
+            gen, t = svc.state_generation(), time.perf_counter()
+            AC.refresh(srcs, AC.PUSHED_FILES)
+            push_s.append(time.perf_counter() - t)
+            epochs.append(svc.state_generation() - gen)
+
+        torch.cuda.synchronize()
+        K.LAUNCHES.update(dict.fromkeys(K.LAUNCHES, 0))
+        cms_cuda.LAUNCHES.update(dict.fromkeys(cms_cuda.LAUNCHES, 0))
+        checked = [0]
+        if name == "card":
+            sync_checked(torch, card, checked)
+        t0 = time.perf_counter()
+        try:
+            responses = AC.drive(stacks, steps, mc.advance, at_half)
+        finally:
+            if name == "card":
+                del card.dispatch_batch_arrays
+        runs[name] = dict(
+            responses=responses,
+            counters=SDK.node_counters(P.chain, P.context, mc.now_ms()),
+            calls=dict(rec.calls), errors=list(rec.errors),
+            decide=K.LAUNCHES["decide_rows"],
+            cms=cms_cuda.LAUNCHES["cms_decide_update"], checked=checked[0],
+            epochs=epochs, load_s=load_s, push_s=push_s[0],
+            wall_s=time.perf_counter() - t0, end_ms=mc.now_ms())
+    AC.reset(P)
+    a, b = runs["card"], runs["twin"]
+    errors = a["errors"] + b["errors"]
+    if errors:
+        raise AssertionError(f"adapters: the service raised: {errors[:3]}")
+    if not len(a["responses"]) == len(b["responses"]) == ADAPTER_REQUESTS:
+        raise AssertionError(f"adapters: {len(a['responses'])} / "
+                             f"{len(b['responses'])} responses")
+    first = next((k for k, (x, y) in enumerate(zip(a["responses"],
+                                                   b["responses"]))
+                  if x != y), None)
+    if first is not None:
+        raise AssertionError(
+            f"adapters: response {first} differs from the twin's: "
+            f"{a['responses'][first]} != {b['responses'][first]}")
+    bad = SDK.diff(a["counters"], b["counters"])
+    if bad or a["end_ms"] != b["end_ms"]:
+        raise AssertionError(f"adapters: node counters differ: {bad}")
+    flow_checks = a["calls"]["request_token"]
+    param_checks = a["calls"]["request_params_token"]
+    if (a["decide"] != flow_checks or a["checked"] != flow_checks
+            or a["cms"] != param_checks or b["decide"] or b["cms"]
+            or b["calls"] != a["calls"]):
+        raise AssertionError(
+            f"adapters: launches {a['decide']} decide / {a['cms']} "
+            f"count-min (twin {b['decide']} / {b['cms']}) for {flow_checks} "
+            f"flow and {param_checks} param checks, {a['checked']} checked "
+            f"dispatches")
+    if a["epochs"] != [1] or b["epochs"] != [1]:
+        raise AssertionError(f"adapters: the push moved the rule epoch by "
+                             f"{a['epochs']} / {b['epochs']}, not one")
+    failures = ds_base.refresh_failure_totals()
+    if failures:
+        raise AssertionError(f"adapters: failed refreshes {failures}")
+    kinds = AC.tally(lay, steps, a["responses"])
+    need = ("200", "429", "500", "blocked:ParamFlowException",
+            "blocked:DegradeException")
+    if (any(not kinds.get(k) for k in need)
+            or flow_checks < ADAPTER_REQUESTS // 20
+            or param_checks < ADAPTER_REQUESTS // 40):
+        raise AssertionError(f"adapters: the stream reached too little: "
+                             f"{kinds}, {a['calls']}")
+    pushed = set(AC.pushed_routes(lay, docs, after))
+    half = ADAPTER_REQUESTS // 2
+    before = AC.tally(lay, steps[:half], a["responses"][:half], pushed)
+    later = AC.tally(lay, steps[half:], a["responses"][half:], pushed)
+    if later.get("429", 0) <= before.get("429", 0):
+        raise AssertionError(f"adapters: the push changed no answer of its "
+                             f"routes: {before} then {later}")
+    asgi = sum(1 for st in steps if st["asgi"])
+    out = dict(requests=ADAPTER_REQUESTS, asgi_requests=asgi,
+               routes=ADAPTER_ROUTES, responses=kinds,
+               nodes=len(a["counters"]), flow_checks=flow_checks,
+               param_checks=param_checks, decide_launches=a["decide"],
+               cms_launches=a["cms"], sync_free_dispatches=a["checked"],
+               pushed_routes=len(pushed), pushed_before=before,
+               pushed_after=later, rule_epoch_step=a["epochs"][0],
+               engine_ms=a["end_ms"] - t0_ms,
+               load_s=a["load_s"], push_s=a["push_s"],
+               twin_load_s=b["load_s"], twin_push_s=b["push_s"],
+               card_wall_s=a["wall_s"], twin_wall_s=b["wall_s"])
+    log(f"adapters 15a: {ADAPTER_REQUESTS} requests ({asgi} through ASGI) "
+        f"over {ADAPTER_ROUTES} routes ({kinds}) equal to the twin in every "
+        f"response and in {len(a['counters'])} nodes' counters; "
+        f"{a['decide']} decide launches for {flow_checks} cluster flow "
+        f"checks (each dispatch sync-free), {a['cms']} count-min launches "
+        f"for {param_checks} cluster param checks; rule files loaded in "
+        f"{a['load_s']:.2f} s, the push of three in {a['push_s']:.2f} s "
+        f"(rule epoch +1; 429s on its {len(pushed)} routes "
+        f"{before.get('429', 0)} then {later.get('429', 0)}); "
+        f"{a['wall_s']:.1f} s on the card, "
+        f"{b['wall_s']:.1f} s on the twin")
+    return out
+
+
+def adapter_timed(AC, P, card, lay, root) -> dict:
+    """15b (see ``phase_adapters``): the WSGI stack served by ``wsgiref``'s
+    server with ``ThreadingMixIn`` on 127.0.0.1, the card service embedded,
+    its rule files polled every ``ADAPTER_POLL_S``."""
+    from socketserver import ThreadingMixIn
+    from wsgiref.simple_server import (
+        WSGIRequestHandler,
+        WSGIServer,
+        make_server,
+    )
+
+    class Server(ThreadingMixIn, WSGIServer):
+        daemon_threads = True
+        request_queue_size = 128  # 8 clients connect at once
+
+    class Quiet(WSGIRequestHandler):
+        def log_message(self, *args):
+            pass
+
+    AC.reset(P)
+    rec = Recorded(card)
+    P.api.set_embedded_server(rec)
+    rule_dir = os.path.join(root, "timed")
+    docs = AC.rule_docs(lay, F, NS)
+    AC.write_rules(P, rule_dir, docs)
+    srcs = AC.open_sources(
+        P, rule_dir, lambda rules: card.load_rules(rules, ns_max_qps=1e9),
+        refresh_interval_s=ADAPTER_POLL_S)
+    stacks = AC.build_stacks(P, lay)
+    server = make_server("127.0.0.1", 0, stacks.wsgi, server_class=Server,
+                         handler_class=Quiet)
+    serving = threading.Thread(target=server.serve_forever, daemon=True)
+    serving.start()
+    plans = []
+    for t in range(ADAPTER_THREADS):
+        steps = AC.stream(np.random.default_rng(2000 + t), lay, ADAPTER_PLAN)
+        plans.append([(f"{AC.path(st['route'])}?{AC.query(st)}",
+                       AC.headers(st), AC.route_class(lay, st["route"]))
+                      for st in steps])
+    out = {}
+    try:
+        for mode in ("cluster", "local"):
+            if mode == "local":
+                AC.write_rules(P, rule_dir,
+                               AC.rule_docs(lay, F, NS, cluster=False),
+                               ("flow", "param"))
+                AC.refresh(srcs, ("flow",))
+                AC.refresh_param_rules(P, srcs)
+            rec.calls.update(dict.fromkeys(rec.calls, 0))
+            out[mode] = adapter_load(server.server_address[1], plans)
+            out[mode]["service_calls"] = dict(rec.calls)
+            t = out[mode]
+            if (not set(t["statuses"]) <= {200, 429, 500}
+                    or (mode == "local") == any(rec.calls.values())):
+                raise AssertionError(f"adapters 15b ({mode} rules): "
+                                     f"statuses {t['statuses']}, service "
+                                     f"calls {rec.calls}")
+            log(f"adapters 15b ({mode} rules, {ADAPTER_THREADS} client "
+                f"threads, {ADAPTER_SECONDS} s): "
+                f"{t['requests_per_s']:.0f} requests/s {t['statuses']}; "
+                f"p50 / p99 ms " + "; ".join(
+                    f"{c} {q['p50']:.3f} / {q['p99']:.3f} (n {q['n']})"
+                    for c, q in t["latency_ms"].items() if q["n"]))
+        AC.write_rules(P, rule_dir, docs, ("flow", "param"))
+        AC.refresh(srcs, ("flow",))
+        AC.refresh_param_rules(P, srcs)
+        out["push"] = adapter_push_latency(AC, P, lay, docs, rule_dir,
+                                           srcs["cluster"],
+                                           server.server_address[1])
+    finally:
+        srcs["cluster"].close()
+        server.shutdown()
+        server.server_close()
+    if rec.errors:
+        raise AssertionError(f"adapters 15b: the service raised: "
+                             f"{rec.errors[:3]}")
+    q = out["push"]["write_to_answer_ms"]
+    log(f"adapters 15b: a write of the {F:,}-rule cluster file to the "
+        f"first answer that shows it, polled every {ADAPTER_POLL_S} s: "
+        f"p50 {q['p50']:.1f} ms, max {q['max']:.1f} ms over "
+        f"{ADAPTER_WRITES} writes")
+    return out
+
+
+def adapter_load(port: int, plans) -> dict:
+    """One 15b run: the clients in a spawned child (their own GIL)."""
+    ctx = multiprocessing.get_context("spawn")
+    pipe, child_end = ctx.Pipe()
+    child = ctx.Process(target=adapter_clients,
+                        args=(child_end, port, plans, ADAPTER_SECONDS),
+                        daemon=True)
+    child.start()
+    try:
+        if not pipe.poll(ADAPTER_SECONDS + 120):
+            raise AssertionError("adapters 15b: the clients did not report")
+        res = pipe.recv()
+    finally:
+        child.join(10)
+        if child.is_alive():
+            child.kill()
+            child.join(10)
+    if res["errors"]:
+        raise AssertionError(f"adapters 15b: {res['errors'][:3]}")
+    return dict(requests=res["n"], wall_s=res["wall_s"],
+                requests_per_s=res["n"] / res["wall_s"],
+                statuses=res["statuses"],
+                latency_ms={c: quantiles(v)
+                            for c, v in res["lat_ms"].items()})
+
+
+def adapter_clients(conn, port: int, plans, seconds: float) -> None:
+    """15b's clients, in a child process: a thread a plan, each cycling
+    through its ``(target, headers, class)`` requests over ``urllib`` (no
+    proxy) for ``seconds``; sends back the latencies (ms) by route class,
+    the statuses, the count and any error other than an HTTP status."""
+    import urllib.error
+    import urllib.request
+
+    opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+    lat = {"cluster_flow": [], "cluster_param": [], "local": []}
+    statuses = {}
+    errors = []
+    counts = [0] * len(plans)
+    lock = threading.Lock()
+    start = threading.Barrier(len(plans) + 1)
+
+    def work(t):
+        mine = {c: [] for c in lat}
+        codes = {}
+        start.wait()
+        end = time.perf_counter() + seconds
+        try:
+            for target, hdrs, cls in itertools.cycle(plans[t]):
+                if time.perf_counter() > end:
+                    break
+                req = urllib.request.Request(
+                    f"http://127.0.0.1:{port}{target}", headers=hdrs)
+                t0 = time.perf_counter()
+                try:
+                    with opener.open(req, timeout=60) as r:
+                        r.read()
+                        code = r.status
+                except urllib.error.HTTPError as e:
+                    e.read()
+                    e.close()
+                    code = e.code
+                mine[cls].append((time.perf_counter() - t0) * 1e3)
+                codes[code] = codes.get(code, 0) + 1
+                counts[t] += 1
+        except Exception as exc:  # sent back: the phase fails
+            errors.append(repr(exc))
+        with lock:
+            for c, v in mine.items():
+                lat[c].extend(v)
+            for code, n in codes.items():
+                statuses[code] = statuses.get(code, 0) + n
+
+    threads = [threading.Thread(target=work, args=(t,), daemon=True)
+               for t in range(len(plans))]
+    for th in threads:
+        th.start()
+    start.wait()
+    t0 = time.perf_counter()
+    for th in threads:
+        th.join(seconds + 90)
+    wall = time.perf_counter() - t0
+    if any(th.is_alive() for th in threads):
+        errors.append("a client thread did not finish")
+    conn.send(dict(lat_ms=lat, statuses=statuses, errors=errors,
+                   n=sum(counts), wall_s=wall))
+    conn.close()
+
+
+def adapter_push_latency(AC, P, lay, docs, rule_dir, src, port) -> dict:
+    """15b: ``src`` (the cluster rule file's data source) polls on its own
+    thread; each of ``ADAPTER_WRITES`` writes flips one probe route's flow
+    between a count of 0 (every check blocks) and 100,000, and the probe's
+    requests time the write to the first answer that shows it."""
+    import urllib.error
+    import urllib.request
+
+    probe = next(i for i in sorted(lay["cluster"])
+                 if i % AC.GROUPS == 0 and i >= 40
+                 and i not in lay["authority"] and i not in lay["gateway"])
+    fid = lay["cluster"][probe]
+    opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+    sent = [0]
+
+    def status() -> int:
+        sent[0] += 1  # a new user id each time: no param rule binds
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}{AC.path(probe)}?uid=p{sent[0]}",
+            headers={"X-Real-IP": AC.IPS[0]})
+        try:
+            with opener.open(req, timeout=60) as r:
+                r.read()
+                return r.status
+        except urllib.error.HTTPError as e:
+            e.read()
+            e.close()
+            return e.code
+
+    src.start()
+    waits = []
+    for w in range(ADAPTER_WRITES):
+        want = 429 if w % 2 == 0 else 200
+        count = 0.0 if want == 429 else 100_000.0
+        rules = [dict(d, count=count) if d["flowId"] == fid else d
+                 for d in docs["cluster"]]
+        t0 = time.perf_counter()
+        AC.write_rules(P, rule_dir, {"cluster": rules}, ("cluster",))
+        while status() != want:
+            if time.perf_counter() - t0 > 60:
+                raise AssertionError(f"adapters 15b: write {w} did not "
+                                     f"reach the answers in 60 s")
+            time.sleep(0.002)
+        waits.append((time.perf_counter() - t0) * 1e3)
+    return dict(probe_route=probe, flow_id=fid, writes=ADAPTER_WRITES,
+                poll_s=ADAPTER_POLL_S, probes=sent[0], waits_ms=waits,
+                write_to_answer_ms=quantiles(waits))
+
+
 def window_less_bucket_ms(svc) -> int:
     """A service's window less one bucket, in ms."""
     c = svc.config
@@ -4779,6 +5215,7 @@ def main() -> int:
     hier = phase_hier(torch, dev)
     sdk = phase_sdk(torch, dev)
     control = phase_control(torch, dev)
+    adapters = phase_adapters(torch, dev)
     service[SIZES[-1]].update(profiled_pulls())
     for sketch, kernels_a_call in profiled_params().items():
         param_service[sketch]["profiled"] = kernels_a_call
@@ -4811,6 +5248,7 @@ def main() -> int:
             control["rls"]["in_process"]["launches"]
             + control["rls"]["shm"]["launches"]
             + control["routing"]["lockstep"]["decide_launches"]),
+        "launches_adapter_phase": adapters["lockstep"]["decide_launches"],
     }]
     for sketch, name, line in (("cms", "cms_decide_update", 49),
                                ("salsa", "salsa_decide_update", 37)):
@@ -4845,6 +5283,8 @@ def main() -> int:
                 control["sketch"][sketch]["launches"]
                 + (control["routing"]["lockstep"]["param_launches"]
                    if sketch == "cms" else 0)),
+            "launches_adapter_phase": (adapters["lockstep"]["cms_launches"]
+                                       if sketch == "cms" else 0),
             "parity_steps": param_parity[sketch][1],
             "by_n": {str(n): v for n, v in param_timing[sketch].items()},
         })
@@ -4875,6 +5315,7 @@ def main() -> int:
                     "hier": hier,
                     "sdk": sdk,
                     "control": control,
+                    "adapters": adapters,
                     "gpu": ident}))
     log(ident)
     log(json.dumps({"kernels": kernels}))

@@ -1,13 +1,17 @@
-"""A CPU rehearsal of ``chip_smoke.py``'s phase 14 (``phase_control``), so
-that a phase broken on the host shows here before a card run.
+"""A CPU rehearsal of ``chip_smoke.py``'s phases 14 (``phase_control``)
+and 15 (``phase_adapters``, its rule files in the test's temporary
+directory), so that a phase broken on the host shows here before a card
+run.
 
-The phase runs at a small size (3,000 flows, a few hundred RLS requests, a
-20,000-event sketch stream) on the CPU, with the kernels' wrappers swapped
-for their plain versions plus the launch-count bump a CUDA launch makes,
-and the impl resolvers forced to the kernel path, so that every check of
-the phase (twin equality, launch counts, over-admission, undercounts,
-bitwise states) runs as on the card. Only what needs the card is stubbed:
-``torch.cuda.synchronize`` and ``torch.cuda.set_sync_debug_mode``.
+Each phase runs at a small size on the CPU (3,000 flows; a few hundred RLS
+requests and a 20,000-event sketch stream, or 1,000 HTTP requests over
+1,600 routes and half-second timed runs), with the kernels' wrappers
+swapped for their plain versions plus the launch-count bump a CUDA launch
+makes, and the impl resolvers forced to the kernel path, so that every
+check of the phase (twin equality, launch counts, over-admission,
+undercounts, bitwise states, the rule push) runs as on the card. Only what
+needs the card is stubbed: ``torch.cuda.synchronize``,
+``torch.cuda.set_sync_debug_mode`` and the card's name.
 """
 
 import os
@@ -96,3 +100,30 @@ def test_phase_control_rehearses_on_the_cpu(smoke):
         assert s["report"]["slim"]["undercounts"] == 0
         assert s["gate"]["width"] == 512  # the reference gate's own
     assert set(out["codec"]) == {64, 1024, 5040}
+
+
+def test_phase_adapters_rehearses_on_the_cpu(smoke, monkeypatch, tmp_path):
+    for name, value in dict(
+            ADAPTER_ROUTES=1600, ADAPTER_REQUESTS=1000, ADAPTER_SECONDS=0.5,
+            ADAPTER_PLAN=200, ADAPTER_WRITES=2,
+            ADAPTER_RULES=str(tmp_path)).items():
+        monkeypatch.setattr(smoke, name, value)
+    monkeypatch.setattr(smoke, "gpu_identity", lambda: "cpu")
+    from sentinel_tpu_torch.datasource import base
+
+    # the phase wants no failed refresh, and the counters are the
+    # process's: other tests in this process count into them
+    base.reset_refresh_failures_for_tests()
+    out = smoke.phase_adapters(torch, "cpu")
+    lock = out["lockstep"]
+    assert lock["decide_launches"] == lock["flow_checks"] > 0
+    assert lock["sync_free_dispatches"] == lock["flow_checks"]
+    assert lock["cms_launches"] == lock["param_checks"] > 0
+    assert lock["rule_epoch_step"] == 1
+    assert (lock["pushed_after"].get("429", 0)
+            > lock["pushed_before"].get("429", 0))
+    for mode in ("cluster", "local"):
+        t = out["timed"][mode]
+        assert t["requests"] > 0 and set(t["statuses"]) <= {200, 429, 500}
+    assert out["timed"]["local"]["service_calls"]["request_token"] == 0
+    assert out["timed"]["push"]["write_to_answer_ms"]["n"] == 2

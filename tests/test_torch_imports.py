@@ -10,7 +10,9 @@ local engine built its native window and ran ``entry`` against an embedded
 service and a ``FailoverTokenClient`` walked a dead endpoint to a port door;
 and after the Envoy RLS service answered a request through the native
 codec and a ``RoutingTokenClient`` followed a namespace MOVE between two
-port doors. The subprocesses write their stat logs into the test's temporary
+port doors. The adapters and the data sources import with JAX, the JAX
+package and every optional framework blocked, and the gRPC interceptors
+then raise ``ImportError``. The subprocesses write their stat logs into the test's temporary
 directory."""
 
 import os
@@ -34,6 +36,23 @@ def _modules():
                                       "sentinel_tpu_torch."):
         names.append(info.name)
     return names
+
+
+# the adapters and the data sources (ROADMAP items 16 and 15)
+ADAPTERS = ("adapters", "adapters.decorator", "adapters.origin",
+            "adapters.wsgi", "adapters.asgi", "adapters.gateway_api",
+            "adapters.gateway", "adapters.http_client",
+            "adapters.grpc_interceptor", "adapters.aiohttp_middleware",
+            "adapters.tornado_handler")
+DATASOURCES = ("datasource", "datasource.base", "datasource.file",
+               "datasource.http_util", "datasource.push_base",
+               "datasource.converters", "datasource.consul",
+               "datasource.etcd", "datasource.nacos", "datasource.apollo",
+               "datasource.eureka", "datasource.spring_cloud_config",
+               "datasource.redis", "datasource.zookeeper")
+# what the card's machine lacks: the optional frameworks, and JAX
+BLOCKED = ("jax", "sentinel_tpu", "grpc", "aiohttp", "tornado", "httpx",
+           "requests")
 
 
 def _env(tmp_path):
@@ -61,7 +80,7 @@ def test_port_modules_import_without_jax(tmp_path):
                 "local.param", "cluster.api", "ha.endpoints", "ha.fallback",
                 "ha.failover", "stats.events", "sketch.parity",
                 "cluster.namespaces", "cluster.routing",
-                "cluster.envoy_rls"):
+                "cluster.envoy_rls") + ADAPTERS + DATASOURCES:
         assert f"sentinel_tpu_torch.{mod}" in names, mod
     code = (
         "import importlib, sys\n"
@@ -253,6 +272,7 @@ def _port_sources():
     yield os.path.join(REPO, "tests", "torch_repl_check.py")
     yield os.path.join(REPO, "tests", "torch_sdk_check.py")
     yield os.path.join(REPO, "tests", "torch_rls_check.py")
+    yield os.path.join(REPO, "tests", "torch_adapter_check.py")
 
 
 def test_port_sources_never_name_jax():
@@ -458,5 +478,44 @@ def test_rls_and_routing_client_serve_without_jax(tmp_path):
          _CONTROL_PLANE_SERVES.format(repo=REPO)],
         capture_output=True, text=True, timeout=300, cwd=REPO,
         env=_env(tmp_path),
+    )
+    assert out.returncode == 0, out.stderr[-2000:]
+
+
+_WITHOUT_FRAMEWORKS = """
+import importlib, sys
+sys.path.insert(0, {repo!r})
+for name in {blocked!r}:
+    sys.modules[name] = None  # an import of it raises ImportError
+for name in ("sentinel_tpu_torch.adapters", "sentinel_tpu_torch.datasource"):
+    importlib.import_module(name)
+for name in {lazy!r}:
+    importlib.import_module("sentinel_tpu_torch." + name)
+try:
+    importlib.import_module("sentinel_tpu_torch.adapters.grpc_interceptor")
+except ImportError:
+    pass
+else:
+    raise AssertionError("the gRPC interceptors imported without grpc")
+from sentinel_tpu_torch.adapters import sentinel_resource
+from sentinel_tpu_torch.datasource.converters import (
+    cluster_flow_rules_from_json, gateway_flow_rules_from_json,
+)
+assert sentinel_resource("r")(lambda: 7)() == 7
+assert cluster_flow_rules_from_json('[{{"flowId": 3, "count": 2}}]')[0].flow_id == 3
+assert gateway_flow_rules_from_json('[{{"resource": "g"}}]')[0].resource == "g"
+bad = sorted(m for m in sys.modules if sys.modules[m] is not None and (
+    m.split(".")[0] in {blocked!r}))
+assert not bad, bad
+"""
+
+
+def test_adapters_and_datasources_import_without_frameworks(tmp_path):
+    lazy = [m for m in ADAPTERS + DATASOURCES
+            if m != "adapters.grpc_interceptor"]
+    code = _WITHOUT_FRAMEWORKS.format(repo=REPO, blocked=BLOCKED, lazy=lazy)
+    out = subprocess.run(
+        [sys.executable, "-I", "-c", code], capture_output=True, text=True,
+        timeout=300, cwd=REPO, env=_env(tmp_path),
     )
     assert out.returncode == 0, out.stderr[-2000:]
