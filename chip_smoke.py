@@ -227,7 +227,32 @@ Builds the port's CUDA kernels from ``sentinel_tpu_torch/csrc`` (one
    with the same rules local (requests/s, p50 / p99 by route class), then
    the cluster rule file polled on its data source's thread: the time
    from a write to the first answer that shows it;
-16. prints the timings, the card's name and power limit, one
+16. the operator's surface (``phase_operator``,
+   ``tests/torch_operator_check.py``): 16a, on a manual clock with the card
+   service and then its torch-ops twin, ``init_default`` (command center,
+   heartbeat to a local fake dashboard), ``setClusterMode`` over HTTP
+   promoting a ``NativeTokenServer`` with a ``metrics_port`` over phase
+   3's 100,000 flow rules and 256 param rules, 200 seeded 1,024-row pulls
+   and 200 PARAM_FLOW frames from a ``TokenClient`` (the admitted rows
+   reported every 10th pull), 2,000 SDK entries of phase 13's shape, four
+   namespace pushes (``modifyFlowRules``, every count changed), a param
+   push, ``modifyFlowConfig``, ``modifyNamespaceSet`` and a port move, four
+   scrapes of both exporters, the metric log written each second and read
+   back through ``metric``, the snapshot fetched and saved,
+   ``ClusterStateManager.to_server`` restoring it into a second service,
+   and a mode file flipping the node to client and back to server on a new
+   port: every verdict, every command response (less times, pids, host
+   names and ports), every exposition series (less the families that
+   measure host durations) and every metric-log byte equal to the twin's,
+   each push shown in the next pull, one decide launch per device step and
+   one count-min launch per param check, each dispatch sync-free,
+   heartbeats naming the command port, no failed refresh and no logged
+   error; 16b, the card alone on the system clock: scrape ms and bytes, one
+   client's closed-loop pull RTT with and without a scrape every 100 ms,
+   ``modifyFlowRules`` to success and to the first verdict that shows it,
+   ``setClusterMode`` and a port move to the first verdict,
+   ``cluster/server/metrics`` and the snapshot fetch;
+17. prints the timings, the card's name and power limit, one
    ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
 
 Any failed check raises and exits non-zero. With no CUDA device, or run from
@@ -3383,6 +3408,7 @@ SDK_DRILL_COUNT = 20.0  # their local rules' count, and the fallback's
 SDK_DRILL_METERED_SHARE = 0.8  # of 13c's entries up to the dark doors
 SDK_DRILL_AFTER_KILL_S = 2.5  # 13c runs on until the standby blocks it
 SDK_DARK_S = 0.45  # 13c's entries with both doors dark: within a bucket
+SDK_FALLBACK_BUCKET_MS = 500  # the policy's window: 2 buckets of 500 ms
 
 
 class Recorded:
@@ -3688,6 +3714,7 @@ def sdk_failover(dev, pipe, child, drill_flows, snap_root, L) -> dict:
     ``stats()`` equals what the entries saw."""
     from sentinel_tpu_torch.cluster import api as cluster_api
     from sentinel_tpu_torch.cluster.server_native import NativeTokenServer
+    from sentinel_tpu_torch.core import clock as _clock
     from sentinel_tpu_torch.engine.decide import TokenStatus
     from sentinel_tpu_torch.ha import (
         FailoverTokenClient,
@@ -3853,11 +3880,18 @@ def sdk_failover(dev, pipe, child, drill_flows, snap_root, L) -> dict:
         # fresh throttle windows (a reload resets them, not the stats): the
         # promotion's throttled answers must not count against them
         policy.load_rules(policy_rules)
+        # start just after a bucket boundary of the policy's clock: the
+        # 1 s window then holds every dark entry for a second, so no entry
+        # leaves it before the threads are joined
+        t_ms = _clock.now_ms()
+        time.sleep((SDK_FALLBACK_BUCKET_MS - t_ms % SDK_FALLBACK_BUCKET_MS
+                    + 5) / 1000.0)
         n_seen = len(seen)
         ths = run_threads(1.0 / len(drill_flows))
         time.sleep(SDK_DARK_S)
         join(ths)
         dark = seen[n_seen:]
+        dark_span_ms = ((dark[-1][0] - dark[0][0]) * 1e3 if dark else 0.0)
         after = dict(policy.stats())
         by_flow = {}
         for _, fid, ok in dark:
@@ -3886,7 +3920,8 @@ def sdk_failover(dev, pipe, child, drill_flows, snap_root, L) -> dict:
             if p != min(int(SDK_DRILL_COUNT), p + bl):
                 fails.append(f"flow {fid} without a fallback rule passed "
                              f"{p} of {p + bl}, not its local count "
-                             f"{SDK_DRILL_COUNT:.0f}")
+                             f"{SDK_DRILL_COUNT:.0f} (the dark entries "
+                             f"spanned {dark_span_ms:.1f} ms)")
         if (after["passed"] - before["passed"] != dark_passed
                 or after["blocked"] - before["blocked"] != dark_blocked):
             fails.append(f"policy stats {before} -> {after} against the "
@@ -3901,7 +3936,7 @@ def sdk_failover(dev, pipe, child, drill_flows, snap_root, L) -> dict:
             standby_metered_blocks=standby_blocks(),
             entries=len(seen), fallback_during_promotion=promotion_fallbacks,
             dark=dict(entries=len(dark), passed=dark_passed,
-                      blocked=dark_blocked,
+                      blocked=dark_blocked, span_ms=dark_span_ms,
                       by_flow={str(k): v for k, v in by_flow.items()}),
             policy_stats=after)
         log(f"sdk 13c: {len(seen)} entries; {before_kill} metered admissions "
@@ -5031,6 +5066,760 @@ def adapter_push_latency(AC, P, lay, docs, rule_dir, src, port) -> dict:
                 write_to_answer_ms=quantiles(waits))
 
 
+OPERATOR_PULLS = 200  # 16a's BATCH_FLOW pulls, each with a PARAM_FLOW frame
+OPERATOR_ROWS = 1024
+OPERATOR_RESOURCES = SDK_RESOURCES  # phase 13's SDK shape
+OPERATOR_ENTRIES = 2000  # entry() calls, spread over the pulls
+OPERATOR_SEED = 161
+OPERATOR_HEIR_PULLS = 20  # the restored service's first pulls
+OPERATOR_FLIP_PULLS = 10  # after the mode file's flip back to server
+OPERATOR_SCRAPES = 20  # 16b's idle scrapes of each exporter
+OPERATOR_LOOP_S = 2.0  # 16b's closed loops, without and with scrapes
+OPERATOR_SCRAPE_S = 0.1  # the scrape interval under the loop
+OPERATOR_PUSHES = 3  # 16b's timed modifyFlowRules
+OPERATOR_REPS = 5  # 16b's cluster/server/metrics and snapshot fetches
+OPERATOR_ROOT = os.path.join(HERE, "sentinel_tpu_torch", "build",
+                             "operator")  # snapshots and the mode file
+
+
+def phase_operator(torch, dev):
+    """Phase 16: the operator's surface (``sentinel_tpu_torch.init``, the
+    command center, heartbeat, exporter, metric log, cluster assignment and
+    ``ClusterStateManager``) driving a token server on the card. 16a, card
+    then twin on one manual clock (``tests/torch_operator_check.py``):
+    ``init_default`` with a local fake dashboard, ``setClusterMode`` over
+    HTTP promoting a ``NativeTokenServer`` with a ``metrics_port``, phase
+    3's 100,000 flow rules and 256 param rules loaded in process, then 200
+    seeded 1,024-row pulls and 200 PARAM_FLOW frames from a
+    ``TokenClient`` (reports every 10th pull), 2,000 SDK entries, four
+    namespace pushes, a param push, ``modifyFlowConfig``,
+    ``modifyNamespaceSet`` and a port move through the command center,
+    scrapes of both exporters, the metric log, a snapshot fetched and saved,
+    ``ClusterStateManager.to_server`` restoring it into a second service,
+    and a mode file flipping the node to client and back to server on a new
+    port. Every verdict, command response (less times, pids, host names and
+    ports), exposition series (less host durations) and metric-log byte must
+    equal the twin's; one decide launch per device step and one count-min
+    launch per param check on the card, each dispatch sync-free;
+    heartbeats received; no failed refresh and no logged error. 16b, the
+    card alone on the system clock: scrape and command times, the pull RTT
+    of one client's closed loop with and without scrapes every 100 ms, and
+    the times from a push, a promotion and a port move to their first
+    verdict."""
+    import torch_operator_check as OC
+    import torch_sdk_check as SDK
+
+    from sentinel_tpu_torch.core import clock
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(OPERATOR_ROOT, ignore_errors=True)
+    os.makedirs(OPERATOR_ROOT)
+    P = OC.package("sentinel_tpu_torch")
+    cfg = P.config.SentinelConfig
+    props = dict(cfg._props)
+    t0_ms = int(time.time() * 1000) // 60_000 * 60_000 - 120_000
+    mc = clock.ManualClock(t0_ms)
+    prev = clock.set_clock(mc)
+    try:
+        out = {"lockstep": operator_lockstep(torch, dev, OC, P, SDK, mc)}
+        clock.set_clock(clock.SystemClock())
+        out["timed"] = operator_timed(torch, dev, OC, P)
+    finally:
+        clock.set_clock(prev)
+        OC.reset(P)
+        cfg._props.clear()
+        cfg._props.update(props)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"operator phase: {out['phase_s']:.1f} s ({gpu_identity()})")
+    return out
+
+
+def operator_service(dev, twin=False):
+    """Phase 3's flow configuration and ``ParamConfig()``, empty, on the
+    kernels or, with ``twin``, on the torch-ops cores."""
+    from sentinel_tpu_torch.cluster.token_service import DefaultTokenService
+    from sentinel_tpu_torch.engine import EngineConfig
+    from sentinel_tpu_torch.engine.param import ParamConfig
+
+    cfg = EngineConfig(max_flows=F, max_namespaces=NS, batch_size=SIZES[-1],
+                       decide_impl="xla" if twin else "auto")
+    return DefaultTokenService(
+        cfg, param_config=ParamConfig(impl="jax" if twin else "auto"),
+        device=dev)
+
+
+def operator_rules(svc):
+    """Phase 3's 100,000 flow rules and ``sdk_service``'s 256 param rules
+    into ``svc``; returns the param rules' flow ids."""
+    import torch_param_check as PC
+
+    from sentinel_tpu_torch.cluster.token_service import ClusterParamFlowRule
+    from sentinel_tpu_torch.engine import ClusterFlowRule, ThresholdMode
+
+    svc.load_rules(service_rules(ClusterFlowRule, ThresholdMode),
+                   ns_max_qps=1e9)
+    specs = PC.service_rule_specs(256, np.random.default_rng(41))
+    svc.load_param_rules([ClusterParamFlowRule(s.flow_id, 1.0 + k % 3)
+                          for k, s in enumerate(specs)])
+    return [s.flow_id for s in specs]
+
+
+def instrument(torch, svc, card: bool, rec: dict) -> None:
+    """Wrap ``svc``'s device steps and param checks (instance attributes
+    over the methods; ``uninstrument`` removes them): count them, the decide
+    and count-min launches each made, record every exception, and run each
+    dispatch of a card service under torch's sync debug mode."""
+    from sentinel_tpu_torch.ops import cms_cuda
+    from sentinel_tpu_torch.ops import decide_cuda as K
+
+    dispatch = svc.dispatch_batch_arrays
+    params = svc.request_params_token
+
+    def checked(ids, counts=None, prios=None):
+        before = K.LAUNCHES["decide_rows"]
+        if card:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            mat = dispatch(ids, counts, prios)
+        except Exception as exc:
+            rec["errors"].append(f"dispatch: {exc!r}")
+            raise
+        finally:
+            if card:
+                torch.cuda.set_sync_debug_mode(0)
+        rec["steps"] += 1
+        rec["decide"].add(K.LAUNCHES["decide_rows"] - before)
+        return mat
+
+    def param_checked(flow_id, acquire, param_hashes):
+        before = cms_cuda.LAUNCHES["cms_decide_update"]
+        try:
+            res = params(flow_id, acquire, param_hashes)
+        except Exception as exc:
+            rec["errors"].append(f"request_params_token: {exc!r}")
+            raise
+        if len(param_hashes):
+            rec["param_checks"] += 1
+            rec["cms"].add(cms_cuda.LAUNCHES["cms_decide_update"] - before)
+        return res
+
+    svc.dispatch_batch_arrays = checked
+    svc.request_params_token = param_checked
+
+
+def uninstrument(svc) -> None:
+    del svc.dispatch_batch_arrays
+    del svc.request_params_token
+
+
+def free_port() -> int:
+    import socket
+
+    sock = socket.socket()
+    sock.bind(("0.0.0.0", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    return port
+
+
+def write_json(path: str, obj) -> None:
+    """Atomically, so that a poller never reads half a file."""
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump(obj, f)
+    os.replace(tmp, path)
+
+
+def operator_lockstep(torch, dev, OC, P, SDK, mc) -> dict:
+    """16a (see ``phase_operator``)."""
+    import importlib
+
+    from sentinel_tpu_torch.cluster.client import TokenClient
+
+    t0_ms = mc.now_ms()
+    sph_mod = importlib.import_module("sentinel_tpu_torch.local.sph")
+    t_build = time.perf_counter()
+    services = {"card": operator_service(dev),
+                "twin": operator_service(dev, twin=True)}
+    build_s = time.perf_counter() - t_build
+    # the plan needs the param rules' flow ids: the same for every service
+    import torch_param_check as PC
+
+    param_flows = [s.flow_id for s in PC.service_rule_specs(
+        256, np.random.default_rng(41))]
+    steps = OC.plan(np.random.default_rng(OPERATOR_SEED), F, param_flows,
+                    OPERATOR_PULLS, OPERATOR_ROWS, PC.value_hashes)
+    lay = SDK.layout(OPERATOR_RESOURCES, range(1000), param_flows)
+    entries = SDK.stream(np.random.default_rng(OPERATOR_SEED + 1), lay,
+                         OPERATOR_ENTRIES)
+    runs = {}
+    for name, svc in services.items():
+        runs[name] = operator_run(torch, dev, OC, P, SDK, sph_mod,
+                                  TokenClient, name, svc, steps, lay,
+                                  entries, mc, t0_ms)
+    a, b = runs["card"], runs["twin"]
+    for key in ("verdicts", "params", "entries", "probes", "responses",
+                "scrapes", "door_scrapes", "metric_files", "metric_text",
+                "heir_verdicts", "flip_verdicts", "end_ms"):
+        x, y = a[key], b[key]
+        if not isinstance(x, list):
+            x, y = [x], [y]
+        bad = OC.first_difference(x, y)
+        if bad:
+            raise AssertionError(f"operator 16a: {key} differ from the "
+                                 f"twin's: {bad}")
+    for name, r in runs.items():
+        want = {1} if name == "card" else {0}
+        if r["errors"] or r["logged"]:
+            raise AssertionError(f"operator 16a ({name}): errors "
+                                 f"{r['errors'][:3]}, logged "
+                                 f"{r['logged'][:3]}")
+        if r["decide"] != want or r["cms"] != want:
+            raise AssertionError(
+                f"operator 16a ({name}): decide launches a device step "
+                f"{r['decide']}, count-min launches a param check "
+                f"{r['cms']}, want {want}")
+    for ns, admitted in a["probes"]:
+        if any(n > OC.pushed_count(f) or n >= OC.PROBE_ROWS
+               for f, n in admitted.items()):
+            raise AssertionError(f"operator 16a: the first pull after the "
+                                 f"push of {ns} admitted {admitted}")
+    if len(a["probes"]) != 4 or not a["metric_text"]:
+        raise AssertionError(f"operator 16a: {len(a['probes'])} pushes "
+                             f"probed, metric log {len(a['metric_text'])} B")
+    statuses = {}
+    for st, _, _ in a["verdicts"]:
+        for s, n in zip(*np.unique(np.frombuffer(st, np.int8),
+                                   return_counts=True)):
+            statuses[int(s)] = statuses.get(int(s), 0) + int(n)
+    out = dict(
+        pulls=OPERATOR_PULLS, rows=OPERATOR_ROWS, entries=OPERATOR_ENTRIES,
+        service_build_s=build_s, pull_statuses=statuses,
+        device_steps=a["steps"], decide_launches=a["steps"],
+        param_checks=a["param_checks"], cms_launches=a["param_checks"],
+        sync_free_dispatches=a["steps"],  # each under sync debug "error"
+        commands=len(a["responses"]), scrapes=len(a["scrapes"]),
+        scrape_lines=len(a["scrapes"][-1]),
+        excluded_families=list(OC.EXCLUDED_FAMILIES),
+        metric_log_bytes=sum(len(v) for _, v in a["metric_files"]),
+        metric_lines=a["metric_text"].count("\n") + 1,
+        heartbeats=a["heartbeats"], probes=[
+            {"namespace": ns, "admitted": {str(f): n for f, n in adm.items()}}
+            for ns, adm in a["probes"]],
+        snapshot_bytes=a["snapshot_bytes"], engine_ms=a["end_ms"] - t0_ms,
+        card=a["times"], twin=b["times"])
+    log(f"operator 16a: {OPERATOR_PULLS} pulls of {OPERATOR_ROWS} rows "
+        f"({statuses}), {OPERATOR_PULLS} PARAM_FLOW frames, "
+        f"{OPERATOR_ENTRIES} entries, {len(a['responses'])} commands, "
+        f"{len(a['scrapes'])} scrapes of both exporters "
+        f"({len(a['scrapes'][-1])} lines compared), "
+        f"{out['metric_log_bytes']} B of metric log, the restored service's "
+        f"{OPERATOR_HEIR_PULLS} pulls and {OPERATOR_FLIP_PULLS} after the "
+        f"mode flips: equal to the twin; {a['steps']} device steps with one "
+        f"decide launch each (sync-free), {a['param_checks']} param checks "
+        f"with one count-min launch each; {a['heartbeats']} heartbeats; "
+        f"card {a['times']['wall_s']:.1f} s, twin {b['times']['wall_s']:.1f} "
+        f"s")
+    return out
+
+
+def operator_run(torch, dev, OC, P, SDK, sph_mod, TokenClient, name, svc,
+                 steps, lay, entries, mc, t0_ms) -> dict:
+    """One 16a run of ``svc`` (``name`` is card or twin) from ``t0_ms``."""
+    import logging
+
+    from sentinel_tpu_torch.cluster.server_native import NativeTokenServer
+    from sentinel_tpu_torch.core.log import record_log
+    from sentinel_tpu_torch.engine.decide import TokenStatus
+
+    card = name == "card"
+    OC.reset(P)
+    mc.set_ms(t0_ms)
+    # one directory for both runs, emptied first: the paths in the answers
+    # are the same
+    run_root = os.path.join(OPERATOR_ROOT, "run")
+    shutil.rmtree(run_root, ignore_errors=True)
+    snap_dir = os.path.join(run_root, "snapshots")
+    os.makedirs(snap_dir)
+    rec = dict(steps=0, param_checks=0, decide=set(), cms=set(), errors=[])
+    instrument(torch, svc, card, rec)
+    logged = []
+    handler = logging.Handler(logging.ERROR)
+    handler.emit = lambda r: logged.append(r.getMessage())
+    record_log.addHandler(handler)
+    metric_dir = P.log.default_metric_dir()
+    shutil.rmtree(metric_dir, ignore_errors=True)
+    dash = OC.FakeDashboard().start()
+    cfg = P.config.SentinelConfig
+    cfg.set("csp.sentinel.dashboard.server", f"127.0.0.1:{dash.port}")
+    cfg.set("csp.sentinel.heartbeat.interval.ms", "200")
+    cfg.set("csp.sentinel.heartbeat.client.ip", "127.0.0.1")
+    cfg.set("csp.sentinel.cluster.server.native", "true")
+    heirs = []
+
+    def door(cls, host, port):
+        # push=False: a client's lockstep sees no push frame (ROADMAP §C)
+        return cls(svc, host=host, port=port, metrics_port=0,
+                   idle_ttl_s=None, push=False)
+
+    def heir_door(cls, host, port):
+        if not heirs:
+            heirs.append(operator_service(dev, twin=not card))
+            instrument(torch, heirs[0], card, rec)
+        return cls(heirs[0], host=host, port=port, metrics_port=0,
+                   idle_ttl_s=None, push=False)
+
+    responses, times = [], {}
+    rt = P.init.init_default(command_port=0, with_metric_log=False,
+                             server_factory=door)
+    cc = rt.command_center.port
+
+    def cmd(path, body=None):
+        status, text = OC.http(cc, path, body)
+        responses.append((path.split("&dir=")[0], status,
+                          OC.normalize(text)))
+        if status != 200:
+            raise AssertionError(f"operator 16a ({name}): {path} answered "
+                                 f"{status}: {text[:300]}")
+        return text
+
+    clients = []
+
+    def connect(port):
+        for c in clients:
+            c.close()
+        clients[:] = [TokenClient("127.0.0.1", port, timeout_ms=60_000,
+                                  namespace="ns0")]
+        return clients[0]
+
+    ok = int(TokenStatus.OK)
+    verdicts, params, probes, scrapes, door_scrapes = [], [], [], [], []
+    sdk_verdicts = []
+    wall0 = time.perf_counter()
+    try:
+        cmd("setClusterMode?mode=1&tokenPort=0")
+        server = P.H._EMBEDDED_SERVER["server"]
+        if not isinstance(server, NativeTokenServer) or not (
+                server.metrics_port and server.service is svc):
+            raise AssertionError(f"operator 16a: setClusterMode gave "
+                                 f"{server!r}")
+        t = time.perf_counter()
+        operator_rules(svc)
+        times["rule_load_s"] = time.perf_counter() - t
+        for path in ("getClusterMode", "cluster/server/info",
+                     "cluster/server/fetchConfig",
+                     "cluster/server/paramRules?namespace=default"):
+            cmd(path)
+        SDK.load_rules(P.L, lay)
+        timer = P.log.MetricTimer(P.log.MetricWriter())
+        client = connect(server.port)
+        per = len(entries) // len(steps)
+        plan_acts = OC.schedule(len(steps))
+        probe = None
+        second = mc.now_ms() // 1000
+        t_traffic = time.perf_counter()
+        for k, st in enumerate(steps):
+            mc.advance(st["dt"])
+            ids = st["ids"]
+            if probe is not None:
+                head = OC.probe_rows(probe[1])
+                ids = np.concatenate([head, ids[:ids.size - head.size]])
+            res = client.request_batch_arrays(ids)
+            if res is None:
+                raise AssertionError(f"operator 16a: pull {k} got no answer")
+            status, remaining, wait = res
+            verdicts.append((status.tobytes(), remaining.tobytes(),
+                             wait.tobytes()))
+            if probe is not None:
+                probes.append((probe[0], OC.probe_admitted(
+                    ids, status, probe[1], ok)))
+                probe = None
+            fid, hashes = st["param"]
+            r = client.request_params_token(fid, 1, hashes)
+            params.append((int(r.status), int(r.remaining), int(r.wait_ms)))
+            if st["report"]:
+                for i in np.flatnonzero(status == ok):
+                    client.record_outcome(int(ids[i]), int(st["rt"][i]),
+                                          bool(st["exc"][i]))
+                client.flush_outcomes()
+                client.ping()  # the barrier: the report is applied
+            sdk_verdicts += SDK.drive(P.L, sph_mod,
+                                      entries[k * per:(k + 1) * per],
+                                      mc.now_ms, mc.advance)
+            if mc.now_ms() // 1000 != second:
+                second = mc.now_ms() // 1000
+                timer.writer.write(timer.collect_once())
+            for act in plan_acts.get(k, ()):
+                probe, client, server = operator_act(
+                    OC, P, act, cmd, cc, svc, probe, client, server,
+                    connect, scrapes, door_scrapes)
+        times["traffic_s"] = time.perf_counter() - t_traffic
+        end_ms = mc.now_ms()
+        metric_text = cmd(f"metric?startTime={t0_ms}&endTime={end_ms}")
+        app = cfg.app_name()
+        searched = "\n".join(n.to_line() for n in P.log.MetricSearcher(
+            metric_dir, app).find(t0_ms, end_ms))
+        if metric_text != searched:
+            raise AssertionError("operator 16a: the metric command's lines "
+                                 "are not MetricSearcher's")
+        timer.writer.close()
+        metric_files = []
+        for fname in sorted(os.listdir(metric_dir)):
+            with open(os.path.join(metric_dir, fname), "rb") as f:
+                metric_files.append((fname, f.read()))
+        doc = cmd("cluster/server/snapshot?action=fetch")
+        cmd(f"cluster/server/snapshot?action=save&dir={snap_dir}")
+        cmd("setClusterMode?mode=-1")
+        # the promotion: a cold second service restores 16a's save
+        t = time.perf_counter()
+        heir = P.manager.ClusterStateManager(heir_door).to_server(
+            token_port=0, snapshot_dir=snap_dir)
+        times["promote_restore_s"] = time.perf_counter() - t
+        if heir is not heirs[0] or len(heir.current_rules()) != F:
+            raise AssertionError(f"operator 16a: the promoted service "
+                                 f"holds {len(heir.current_rules())} rules")
+        cmd("cluster/server/info")
+        client = connect(P.H._EMBEDDED_SERVER["server"].port)
+        heir_verdicts = []
+        for st in steps[:OPERATOR_HEIR_PULLS]:
+            mc.advance(st["dt"])
+            s, rem, w = client.request_batch_arrays(st["ids"])
+            heir_verdicts.append((s.tobytes(), rem.tobytes(), w.tobytes()))
+        # a mode file flips the node to client, then back to server on a
+        # new port (the same service, its state kept)
+        mode_path = os.path.join(run_root, "mode.json")
+        write_json(mode_path, {"mode": 0})
+        src = P.file.FileRefreshableDataSource(mode_path,
+                                               converter=json.loads)
+        P.assign.register_cluster_mode_property(src.property, heir_door)
+        src.refresh()
+        if (P.api.get_mode() != P.api.ClusterMode.CLIENT
+                or P.H._EMBEDDED_SERVER["server"] is not None):
+            raise AssertionError("operator 16a: mode 0 left a server")
+        port = free_port()
+        write_json(mode_path, {"mode": 1, "tokenPort": port})
+        src.refresh()
+        server = P.H._EMBEDDED_SERVER["server"]
+        if server is None or server.port != port or server.service is not heir:
+            raise AssertionError(f"operator 16a: mode 1 gave {server!r}")
+        cmd("getClusterMode")
+        client = connect(port)
+        flip_verdicts = []
+        for st in steps[OPERATOR_HEIR_PULLS:
+                        OPERATOR_HEIR_PULLS + OPERATOR_FLIP_PULLS]:
+            mc.advance(st["dt"])
+            s, rem, w = client.request_batch_arrays(st["ids"])
+            flip_verdicts.append((s.tobytes(), rem.tobytes(), w.tobytes()))
+        failures = P.base.refresh_failure_totals()
+        if failures:
+            raise AssertionError(f"operator 16a: failed refreshes {failures}")
+        if not rt.heartbeat.send_once():
+            raise AssertionError("operator 16a: the dashboard refused a "
+                                 "heartbeat")
+        beats = [bt for bt in dash.beats if bt["port"] == cc]
+        if not beats or len(beats) != len(dash.beats):
+            raise AssertionError(f"operator 16a: heartbeats {dash.beats[:3]}")
+        end_ms = mc.now_ms()
+    finally:
+        for c in clients:
+            c.close()
+        P.init.shutdown()
+        OC.reset(P)
+        dash.stop()
+        record_log.removeHandler(handler)
+        uninstrument(svc)
+        for h in heirs:
+            uninstrument(h)
+    times["wall_s"] = time.perf_counter() - wall0
+    return dict(
+        verdicts=verdicts, params=params, entries=sdk_verdicts,
+        probes=probes, responses=responses, scrapes=scrapes,
+        door_scrapes=door_scrapes, metric_files=metric_files,
+        metric_text=metric_text, heir_verdicts=heir_verdicts,
+        flip_verdicts=flip_verdicts, end_ms=end_ms, errors=rec["errors"],
+        logged=logged, decide=rec["decide"], cms=rec["cms"],
+        steps=rec["steps"], param_checks=rec["param_checks"],
+        heartbeats=len(beats),
+        snapshot_bytes=len(doc), times=times)
+
+
+def operator_act(OC, P, act, cmd, cc, svc, probe, client, server, connect,
+                 scrapes, door_scrapes):
+    """One scheduled 16a action; returns the (probe, client, server) it
+    leaves for the next pull."""
+    if act[0] == "push":  # every count of one namespace changed
+        ns = f"ns{act[1]}"
+        rules = json.loads(cmd(f"cluster/server/flowRules?namespace={ns}"))
+        body, chosen = OC.pushed(rules)
+        cmd(f"cluster/server/modifyFlowRules?namespace={ns}",
+            json.dumps(body))
+        probe = (ns, chosen)
+    elif act[0] == "param":
+        rules = json.loads(cmd("cluster/server/paramRules?namespace=default"))
+        cmd("cluster/server/modifyParamRules?namespace=default",
+            json.dumps([dict(r, count=r["count"] + 1) for r in rules]))
+    elif act[0] == "flow_config":
+        cmd("cluster/server/modifyFlowConfig",
+            json.dumps({"maxAllowedQps": 5e8}))
+        cmd("cluster/server/fetchConfig")
+    elif act[0] == "namespace_set":
+        cmd("cluster/server/modifyNamespaceSet",
+            json.dumps([f"ns{i}" for i in range(NS)]))
+        cmd("cluster/server/info")
+    elif act[0] == "move":
+        port = free_port()
+        cmd("cluster/server/modifyTransportConfig",
+            json.dumps({"port": port}))
+        server = P.H._EMBEDDED_SERVER["server"]
+        if server.port != port or server.service is not svc:
+            raise AssertionError(f"operator 16a: the move gave "
+                                 f"{server.port} / {server.service}")
+        client = connect(port)
+    elif act[0] == "scrape":
+        status_a, text_a = OC.http(cc, "metric/prometheus")
+        status_b, text_b = OC.http(server.metrics_port, "metrics")
+        sa, sb = OC.series(text_a), OC.series(text_b)
+        if status_a != 200 or status_b != 200 or sa != sb:
+            raise AssertionError(
+                f"operator 16a: the two exporters differ: "
+                f"{OC.first_difference(sa, sb)}")
+        scrapes.append(sa)
+        door_scrapes.append(sb)
+    elif act[0] == "metrics":
+        cmd("cluster/server/metrics")
+        cmd("cluster/server/metricList?namespace=ns1")
+    return probe, client, server
+
+
+def operator_timed(torch, dev, OC, P) -> dict:
+    """16b (see ``phase_operator``): the card alone on the system clock."""
+    from sentinel_tpu_torch.cluster.client import TokenClient
+    from sentinel_tpu_torch.engine.decide import TokenStatus
+
+    OC.reset(P)
+    cfg = P.config.SentinelConfig
+    cfg.set("csp.sentinel.cluster.server.native", "true")
+    cfg.set("csp.sentinel.dashboard.server", "")
+    built = []
+
+    def fresh(cls, host, port):
+        # what a promotion costs: the service, its rules, the warm-up
+        svc = operator_service(dev)
+        operator_rules(svc)
+        built.append(svc)
+        return cls(svc, host=host, port=port, metrics_port=0,
+                   idle_ttl_s=None)
+
+    rng = np.random.default_rng(OPERATOR_SEED + 2)
+    pulls = OC.plan(rng, F, [0], 64, OPERATOR_ROWS,
+                    lambda f, v: v)  # ids only
+    rt = P.init.init_default(command_port=0, with_metric_log=False,
+                             server_factory=fresh)
+    cc = rt.command_center.port
+    out = {}
+    clients = []
+
+    def pull(client, ids):
+        t = time.perf_counter()
+        res = client.request_batch_arrays(ids)
+        if res is None:
+            raise AssertionError("operator 16b: a pull got no answer")
+        return res, (time.perf_counter() - t) * 1e3
+
+    def timed_get(port, path):
+        t = time.perf_counter()
+        status, text = OC.http(port, path)
+        if status != 200:
+            raise AssertionError(f"operator 16b: {path} answered {status}")
+        return (time.perf_counter() - t) * 1e3, len(text.encode())
+
+    try:
+        t = time.perf_counter()
+        status, text = OC.http(cc, "setClusterMode?mode=1&tokenPort=0")
+        if status != 200 or text != "success":
+            raise AssertionError(f"operator 16b: setClusterMode: {text}")
+        server = P.H._EMBEDDED_SERVER["server"]
+        clients.append(TokenClient("127.0.0.1", server.port,
+                                   timeout_ms=60_000, namespace="ns0"))
+        pull(clients[-1], pulls[0]["ids"])
+        out["set_cluster_mode_to_first_verdict_ms"] = (
+            time.perf_counter() - t) * 1e3
+        for k in range(1, 8):  # warm the door's lanes
+            pull(clients[-1], pulls[k]["ids"])
+        for label, port, path in (
+                ("metric_prometheus", cc, "metric/prometheus"),
+                ("metrics_port", server.metrics_port, "metrics")):
+            ms, size = zip(*(timed_get(port, path)
+                             for _ in range(OPERATOR_SCRAPES)))
+            out[f"{label}_ms"] = quantiles(ms)
+            out[f"{label}_bytes"] = max(size)
+        out["loop"] = operator_loops(OC, server, cc)
+        pushes = []
+        for j in range(OPERATOR_PUSHES):
+            ns = f"ns{20 + j}"
+            _, text = OC.http(cc, f"cluster/server/flowRules?namespace={ns}")
+            body, chosen = OC.pushed(json.loads(text))
+            t = time.perf_counter()
+            status, text = OC.http(
+                cc, f"cluster/server/modifyFlowRules?namespace={ns}",
+                json.dumps(body))
+            success = (time.perf_counter() - t) * 1e3
+            ids = OC.probe_rows(chosen)
+            (st, _, _), _ = pull(clients[-1], ids)
+            first = (time.perf_counter() - t) * 1e3
+            admitted = OC.probe_admitted(ids, st, chosen,
+                                         int(TokenStatus.OK))
+            if text != "success" or any(
+                    n > OC.pushed_count(f) for f, n in admitted.items()):
+                raise AssertionError(f"operator 16b: push of {ns}: {text}, "
+                                     f"then admitted {admitted}")
+            pushes.append((success, first))
+        out["modify_flow_rules_rules"] = len(body)
+        out["modify_flow_rules_success_ms"] = quantiles(
+            [p[0] for p in pushes])
+        out["modify_flow_rules_first_verdict_ms"] = quantiles(
+            [p[1] for p in pushes])
+        port = free_port()
+        t = time.perf_counter()
+        status, text = OC.http(cc, "cluster/server/modifyTransportConfig",
+                               json.dumps({"port": port}))
+        clients.append(TokenClient("127.0.0.1", port, timeout_ms=60_000,
+                                   namespace="ns0"))
+        pull(clients[-1], pulls[8]["ids"])
+        out["modify_transport_to_first_verdict_ms"] = (
+            time.perf_counter() - t) * 1e3
+        if text != "success":
+            raise AssertionError(f"operator 16b: the move answered {text}")
+        for label, path in (("cluster_server_metrics",
+                             "cluster/server/metrics"),
+                            ("snapshot_fetch",
+                             "cluster/server/snapshot?action=fetch")):
+            ms, size = zip(*(timed_get(cc, path)
+                             for _ in range(OPERATOR_REPS)))
+            out[f"{label}_ms"] = quantiles(ms)
+            out[f"{label}_bytes"] = max(size)
+    finally:
+        for c in clients:
+            c.close()
+        P.init.shutdown()
+        OC.reset(P)
+    if len(built) != 1:
+        raise AssertionError(f"operator 16b: {len(built)} services built")
+    lp = out["loop"]
+    log(f"operator 16b: setClusterMode to the first verdict "
+        f"{out['set_cluster_mode_to_first_verdict_ms']:.0f} ms; scrape p50 / "
+        f"p99 ms: metric/prometheus {out['metric_prometheus_ms']['p50']:.2f}"
+        f" / {out['metric_prometheus_ms']['p99']:.2f} "
+        f"({out['metric_prometheus_bytes']} B), metrics_port "
+        f"{out['metrics_port_ms']['p50']:.2f} / "
+        f"{out['metrics_port_ms']['p99']:.2f} ({out['metrics_port_bytes']} "
+        f"B); pull RTT p50 / p99 ms without scrapes "
+        f"{lp['quiet']['rtt_ms']['p50']:.2f} / "
+        f"{lp['quiet']['rtt_ms']['p99']:.2f}, with a scrape every "
+        f"{OPERATOR_SCRAPE_S} s {lp['scraped']['rtt_ms']['p50']:.2f} / "
+        f"{lp['scraped']['rtt_ms']['p99']:.2f}; modifyFlowRules "
+        f"({out['modify_flow_rules_rules']} rules) to success p50 "
+        f"{out['modify_flow_rules_success_ms']['p50']:.0f} ms, to the first "
+        f"verdict {out['modify_flow_rules_first_verdict_ms']['p50']:.0f} ms; "
+        f"a port move to the first verdict "
+        f"{out['modify_transport_to_first_verdict_ms']:.0f} ms; "
+        f"cluster/server/metrics p50 "
+        f"{out['cluster_server_metrics_ms']['p50']:.1f} ms "
+        f"({out['cluster_server_metrics_bytes']} B); snapshot fetch p50 "
+        f"{out['snapshot_fetch_ms']['p50']:.0f} ms "
+        f"({out['snapshot_fetch_bytes']} B)")
+    return out
+
+
+def operator_loops(OC, server, cc) -> dict:
+    """16b: one client's closed loop of 1,024-row pulls in a spawned child,
+    ``OPERATOR_LOOP_S`` without scrapes, then as long with both exporters
+    scraped in turn every ``OPERATOR_SCRAPE_S``."""
+    ctx = multiprocessing.get_context("spawn")
+    pipe, child_end = ctx.Pipe()
+    child = ctx.Process(target=operator_client,
+                        args=(child_end, server.port, F, OPERATOR_ROWS),
+                        daemon=True)
+    child.start()
+    out = {}
+    try:
+        if not pipe.poll(120) or pipe.recv() != "ready":
+            raise AssertionError("operator 16b: the client did not start")
+        for mode in ("quiet", "scraped"):
+            scrape_ms, stop = [], threading.Event()
+
+            def scraper():
+                targets = ((cc, "metric/prometheus"),
+                           (server.metrics_port, "metrics"))
+                k = 0
+                while not stop.wait(OPERATOR_SCRAPE_S):
+                    port, path = targets[k % 2]
+                    t = time.perf_counter()
+                    status, _ = OC.http(port, path)
+                    scrape_ms.append((time.perf_counter() - t) * 1e3)
+                    k += 1
+
+            th = threading.Thread(target=scraper, daemon=True)
+            if mode == "scraped":
+                th.start()
+            pipe.send(OPERATOR_LOOP_S)
+            if not pipe.poll(OPERATOR_LOOP_S + 120):
+                raise AssertionError("operator 16b: the loop did not end")
+            res = pipe.recv()
+            stop.set()
+            if mode == "scraped":
+                th.join(30)
+            if res["errors"]:
+                raise AssertionError(f"operator 16b: {res['errors'][:3]}")
+            out[mode] = dict(pulls=len(res["rtt_ms"]),
+                             rtt_ms=quantiles(res["rtt_ms"]),
+                             scrapes=len(scrape_ms),
+                             scrape_ms=quantiles(scrape_ms))
+        pipe.send(None)
+    finally:
+        child.join(30)
+        if child.is_alive():
+            child.kill()
+            child.join(10)
+    return out
+
+
+def operator_client(conn, port: int, flows: int, rows: int) -> None:
+    """16b's client, in a child process: a closed loop of ``rows``-row
+    bounded-Zipf pulls for the seconds each message names (None ends it);
+    sends back each pull's RTT (ms) and any error."""
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    import torch_operator_check as OC
+
+    from sentinel_tpu_torch.cluster.client import TokenClient
+
+    rng = np.random.default_rng(7)
+    pulls = [p["ids"] for p in OC.plan(rng, flows, [0], 32, rows,
+                                       lambda f, v: v)]
+    client = TokenClient("127.0.0.1", port, timeout_ms=60_000,
+                         namespace="ns0")
+    conn.send("ready")
+    while True:
+        seconds = conn.recv()
+        if seconds is None:
+            break
+        rtt, errors = [], []
+        end = time.perf_counter() + seconds
+        k = 0
+        while time.perf_counter() < end:
+            t = time.perf_counter()
+            try:
+                if client.request_batch_arrays(pulls[k % len(pulls)]) is None:
+                    errors.append("no answer")
+            except Exception as exc:  # sent back: the phase fails
+                errors.append(repr(exc))
+            rtt.append((time.perf_counter() - t) * 1e3)
+            k += 1
+        conn.send(dict(rtt_ms=rtt, errors=errors))
+    client.close()
+    conn.close()
+
+
 def window_less_bucket_ms(svc) -> int:
     """A service's window less one bucket, in ms."""
     c = svc.config
@@ -5216,6 +6005,7 @@ def main() -> int:
     sdk = phase_sdk(torch, dev)
     control = phase_control(torch, dev)
     adapters = phase_adapters(torch, dev)
+    operator = phase_operator(torch, dev)
     service[SIZES[-1]].update(profiled_pulls())
     for sketch, kernels_a_call in profiled_params().items():
         param_service[sketch]["profiled"] = kernels_a_call
@@ -5249,6 +6039,7 @@ def main() -> int:
             + control["rls"]["shm"]["launches"]
             + control["routing"]["lockstep"]["decide_launches"]),
         "launches_adapter_phase": adapters["lockstep"]["decide_launches"],
+        "launches_operator_phase": operator["lockstep"]["decide_launches"],
     }]
     for sketch, name, line in (("cms", "cms_decide_update", 49),
                                ("salsa", "salsa_decide_update", 37)):
@@ -5285,6 +6076,8 @@ def main() -> int:
                    if sketch == "cms" else 0)),
             "launches_adapter_phase": (adapters["lockstep"]["cms_launches"]
                                        if sketch == "cms" else 0),
+            "launches_operator_phase": (operator["lockstep"]["cms_launches"]
+                                        if sketch == "cms" else 0),
             "parity_steps": param_parity[sketch][1],
             "by_n": {str(n): v for n, v in param_timing[sketch].items()},
         })
@@ -5316,6 +6109,7 @@ def main() -> int:
                     "sdk": sdk,
                     "control": control,
                     "adapters": adapters,
+                    "operator": operator,
                     "gpu": ident}))
     log(ident)
     log(json.dumps({"kernels": kernels}))

@@ -21,3 +21,5 @@ Conventions:
 - The package imports ``torch`` and ``numpy``, never ``jax`` and nothing of
   ``sentinel_tpu``.
 """
+
+__version__ = "0.1.0"  # the reference's (sentinel_tpu/__init__.py)

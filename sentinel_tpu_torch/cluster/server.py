@@ -32,9 +32,9 @@ verdicts waits for the device, so large steps do that on a worker thread and
 the IO loop keeps pumping frames meanwhile.
 
 The service is probed for no hook: it must have every method the door calls
-(:class:`DefaultTokenService` does). A feature of a slice not yet ported is
-refused at construction with ``NotImplementedError``: ``metrics_port`` (the
-Prometheus exporter, ROADMAP item 8).
+(:class:`DefaultTokenService` does). ``metrics_port`` serves the process's
+Prometheus exposition (``metrics.exporter``) on its own port, as the
+reference door does.
 """
 
 from __future__ import annotations
@@ -976,12 +976,10 @@ class TokenServer:
         # on-demand trace control for the cluster/server/profiler command;
         # start() opens an always-on trace through it when profile_dir is set
         self.profiler = ProfilerHook(default_dir=self.profile_dir)
-        # the standalone Prometheus endpoint is not ported (ROADMAP item 8)
-        if metrics_port is not None:
-            raise NotImplementedError(
-                "metrics_port (the Prometheus exporter) is not ported to "
-                "sentinel_tpu_torch yet (ROADMAP item 8)"
-            )
+        # optional standalone Prometheus endpoint (its own port); 0 picks an
+        # ephemeral port, resolved at start()
+        self.metrics_port = metrics_port
+        self._metrics_exporter = None
         self._gauge_fns: Dict[str, object] = {}
         # HA state snapshots (ha.snapshot): with a directory
         # set, start() restores the newest artifact into a COLD service and
@@ -1048,6 +1046,7 @@ class TokenServer:
             max_inflight=self.max_inflight,
             idle_ttl_s=self.idle_ttl_s,
             profile_dir=self.profile_dir,
+            metrics_port=self.metrics_port,
             snapshot_dir=self.snapshot_dir,
             snapshot_period_s=self.snapshot_period_s,
             max_queue=self.max_queue,
@@ -1148,6 +1147,13 @@ class TokenServer:
         # started door wins — same single-slot contract as the other
         # providers)
         _SM.register_push_provider(self.push_hub.stats)
+        if self.metrics_port is not None:
+            from sentinel_tpu_torch.metrics.exporter import PrometheusExporter
+
+            self._metrics_exporter = PrometheusExporter(
+                host="0.0.0.0", port=self.metrics_port
+            ).start()
+            self.metrics_port = self._metrics_exporter.port  # resolve port 0
         if self.snapshot_dir:
             from sentinel_tpu_torch.ha.snapshot import SnapshotManager
 
@@ -1180,6 +1186,9 @@ class TokenServer:
             self._snapshots = None
         if self.profiler.active:
             self.profiler.stop()
+        if self._metrics_exporter is not None:
+            self._metrics_exporter.stop()
+            self._metrics_exporter = None
         for name, fn in self._gauge_fns.items():
             _SM.unregister_gauge(name, fn)
         self._gauge_fns = {}

@@ -42,9 +42,9 @@ dropped) until :meth:`NativeTokenServer.promote`, or until its primary has
 been silent for ``promote_after_ms``.
 
 The service is probed for no hook: it must have every method the door
-calls (:class:`DefaultTokenService` does). A feature of a slice not yet
-ported is refused at construction with ``NotImplementedError``:
-``metrics_port`` (the Prometheus exporter).
+calls (:class:`DefaultTokenService` does). ``metrics_port`` serves the
+process's Prometheus exposition (``metrics.exporter``) on its own port, as
+the reference door does.
 
 Live namespace moves, as in the reference door: rev-4 MOVE frames route to
 the server's :class:`~sentinel_tpu_torch.cluster.rebalance.MoveTarget`, one
@@ -87,12 +87,6 @@ def native_available() -> bool:
     return native_lib.available()
 
 
-def _refuse(what: str, item: str) -> None:
-    raise NotImplementedError(
-        f"{what} is not ported to sentinel_tpu_torch yet (ROADMAP {item})"
-    )
-
-
 class NativeTokenServer:
     def __init__(
         self,
@@ -122,8 +116,6 @@ class NativeTokenServer:
         shm_spin_us: Optional[int] = None,
         push: bool = True,
     ):
-        if metrics_port is not None:
-            _refuse("metrics_port (the Prometheus exporter)", "item 8")
         from sentinel_tpu_torch.native import lib as native_lib
 
         native_lib.load()  # builds on first use; raises if it cannot
@@ -203,6 +195,8 @@ class NativeTokenServer:
         # profiler command target + optional standalone /metrics endpoint
         self.profile_dir = profile_dir
         self.profiler = ProfilerHook(default_dir=profile_dir)
+        self.metrics_port = metrics_port
+        self._metrics_exporter = None
         self._gauge_fns: dict = {}
         # HA state snapshots: restored into a cold service at start, saved
         # every snapshot_period_s and once more at stop
@@ -253,6 +247,7 @@ class NativeTokenServer:
             idle_ttl_s=self.idle_ttl_s,
             arena_cap=self.arena_cap,
             profile_dir=self.profile_dir,
+            metrics_port=self.metrics_port,
             snapshot_dir=self.snapshot_dir,
             snapshot_period_s=self.snapshot_period_s,
             shed_age_ms=self.shed_age_ms,
@@ -439,6 +434,13 @@ class NativeTokenServer:
         # hub half of the clusterServerStats `push` block (single-slot
         # provider, same contract as the asyncio door's)
         _SM.register_push_provider(self.push_hub.stats)
+        if self.metrics_port is not None:
+            from sentinel_tpu_torch.metrics.exporter import PrometheusExporter
+
+            self._metrics_exporter = PrometheusExporter(
+                host="0.0.0.0", port=self.metrics_port
+            ).start()
+            self.metrics_port = self._metrics_exporter.port
         if self.snapshot_dir:
             from sentinel_tpu_torch.ha.snapshot import SnapshotManager
 
@@ -521,6 +523,9 @@ class NativeTokenServer:
             self._snapshots = None
         if self.profiler.active:
             self.profiler.stop()
+        if self._metrics_exporter is not None:
+            self._metrics_exporter.stop()
+            self._metrics_exporter = None
         for name, fn in self._gauge_fns.items():
             _SM.unregister_gauge(name, fn)
         self._gauge_fns = {}

@@ -9,6 +9,8 @@ failover client, local fallback, snapshots and replication.
   (pass / block / local-window throttle) riding ``local.flow`` controllers.
 - :mod:`~sentinel_tpu_torch.ha.snapshot` — device→host state snapshot and
   restore, the artifact directory and the periodic :class:`SnapshotManager`.
+- :mod:`~sentinel_tpu_torch.ha.manager` — :class:`ClusterStateManager`,
+  runtime client/server/off transitions that rewire the slot chain live.
 - :mod:`~sentinel_tpu_torch.ha.replication` — warm-standby delta streaming:
   :class:`ReplicationSender` ships dirty counter rows every tick over wire
   rev 3; :class:`StandbyApplier` applies them behind a closed front door
@@ -16,11 +18,6 @@ failover client, local fallback, snapshots and replication.
 
 The documents and frames are the reference's byte for byte, so a primary of
 either package replicates into a standby of either.
-
-The reference package also exports ``ClusterStateManager``
-(``ha/manager.py``). Every one of its methods drives the transport's
-command handlers, which are not ported yet (ROADMAP item 14), so it is not
-here.
 """
 
 from sentinel_tpu_torch.ha.endpoints import Endpoint, EndpointHealth, HealthState
@@ -30,6 +27,7 @@ from sentinel_tpu_torch.ha.fallback import (
     FallbackRule,
     LocalFallbackPolicy,
 )
+from sentinel_tpu_torch.ha.manager import ClusterStateManager
 from sentinel_tpu_torch.ha.replication import ReplicationSender, StandbyApplier
 from sentinel_tpu_torch.ha.snapshot import (
     SNAPSHOT_VERSION,
@@ -51,6 +49,7 @@ __all__ = [
     "FallbackAction",
     "FallbackRule",
     "LocalFallbackPolicy",
+    "ClusterStateManager",
     "ReplicationSender",
     "StandbyApplier",
     "SNAPSHOT_VERSION",

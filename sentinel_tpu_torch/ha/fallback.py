@@ -59,15 +59,40 @@ class FallbackRule:
 
 
 class _Throttle:
-    """Lazy per-flow local window + controller."""
+    """Lazy per-flow local window + controller.
 
-    __slots__ = ("node", "controller")
+    ``lock`` makes a rejecting controller's check and its count one step, so
+    that threads sharing the policy cannot both take a window's last token
+    (the reference checks and counts apart). The pacer and a prioritized
+    borrow sleep inside ``can_pass`` and stay unlocked, as in the reference:
+    a lock there would serialize the sleeps."""
+
+    __slots__ = ("node", "controller", "lock")
 
     def __init__(self, rule: FallbackRule):
         self.node = StatisticNode()
         self.controller = fallback_controller(
             rule.count, rule.max_queueing_time_ms
         )
+        self.lock = (threading.Lock() if rule.max_queueing_time_ms <= 0
+                     else None)
+
+    def admit(self, acquire: int, prioritized: bool) -> bool:
+        if prioritized or self.lock is None:
+            return self._admit(acquire, prioritized)
+        with self.lock:
+            return self._admit(acquire, False)
+
+    def _admit(self, acquire: int, prioritized: bool) -> bool:
+        try:
+            ok = bool(self.controller.can_pass(self.node, acquire,
+                                               prioritized))
+        except PriorityWaitException:
+            # the controller already waited the occupied window in; admitted
+            ok = True
+        if ok:
+            self.node.add_pass(acquire, _clock.now_ms())
+        return ok
 
 
 class LocalFallbackPolicy:
@@ -132,14 +157,7 @@ class LocalFallbackPolicy:
             )
         throttle = self._throttle_for(rule)
         now = _clock.now_ms()
-        try:
-            ok = bool(throttle.controller.can_pass(throttle.node, acquire,
-                                                   prioritized))
-        except PriorityWaitException:
-            # the controller already waited the occupied window in; admitted
-            ok = True
-        if ok:
-            throttle.node.add_pass(acquire, _clock.now_ms())
+        if throttle.admit(acquire, prioritized):
             self._count("throttle_pass", passed=True)
             return TokenResult(TokenStatus.OK)
         throttle.node.add_block(acquire, now)

@@ -1,11 +1,12 @@
-"""A CPU rehearsal of ``chip_smoke.py``'s phases 14 (``phase_control``)
-and 15 (``phase_adapters``, its rule files in the test's temporary
-directory), so that a phase broken on the host shows here before a card
-run.
+"""A CPU rehearsal of ``chip_smoke.py``'s phases 14 (``phase_control``),
+15 (``phase_adapters``, its rule files in the test's temporary directory)
+and 16 (``phase_operator``, its snapshots and mode file there too), so that
+a phase broken on the host shows here before a card run.
 
 Each phase runs at a small size on the CPU (3,000 flows; a few hundred RLS
 requests and a 20,000-event sketch stream, or 1,000 HTTP requests over
-1,600 routes and half-second timed runs), with the kernels' wrappers
+1,600 routes and half-second timed runs, or 40 pulls of 256 rows and
+400 entries), with the kernels' wrappers
 swapped for their plain versions plus the launch-count bump a CUDA launch
 makes, and the impl resolvers forced to the kernel path, so that every
 check of the phase (twin equality, launch counts, over-admission,
@@ -127,3 +128,25 @@ def test_phase_adapters_rehearses_on_the_cpu(smoke, monkeypatch, tmp_path):
         assert t["requests"] > 0 and set(t["statuses"]) <= {200, 429, 500}
     assert out["timed"]["local"]["service_calls"]["request_token"] == 0
     assert out["timed"]["push"]["write_to_answer_ms"]["n"] == 2
+
+
+def test_phase_operator_rehearses_on_the_cpu(smoke, monkeypatch, tmp_path):
+    for name, value in dict(
+            OPERATOR_PULLS=40, OPERATOR_ROWS=256, OPERATOR_ENTRIES=400,
+            OPERATOR_HEIR_PULLS=4, OPERATOR_FLIP_PULLS=2, OPERATOR_SCRAPES=3,
+            OPERATOR_LOOP_S=0.3, OPERATOR_PUSHES=1, OPERATOR_REPS=2,
+            OPERATOR_ROOT=str(tmp_path)).items():
+        monkeypatch.setattr(smoke, name, value)
+    monkeypatch.setattr(smoke, "gpu_identity", lambda: "cpu")
+    out = smoke.phase_operator(torch, "cpu")
+    lock = out["lockstep"]
+    assert lock["decide_launches"] == lock["device_steps"] > 40
+    assert lock["sync_free_dispatches"] == lock["device_steps"]
+    assert lock["cms_launches"] == lock["param_checks"] >= 40
+    assert len(lock["probes"]) == 4 and lock["heartbeats"] >= 1
+    assert lock["metric_log_bytes"] > 0 and lock["scrapes"] == 4
+    timed = out["timed"]
+    assert timed["loop"]["scraped"]["scrapes"] >= 1
+    assert timed["loop"]["quiet"]["pulls"] > 0
+    assert timed["modify_flow_rules_first_verdict_ms"]["n"] == 1
+    assert timed["snapshot_fetch_bytes"] > 0

@@ -425,6 +425,37 @@ class TestLocalFallbackPolicy:
         manual_clock.advance(1000)
         assert policy.decide(3).status == TokenStatus.OK
 
+    def test_throttle_budget_holds_across_threads(self, manual_clock,
+                                                 monkeypatch):
+        # the window's read yields the interpreter, so that a thread
+        # switch between the check and the count shows as over-admission
+        from sentinel_tpu_torch.local.stat import StatisticNode
+
+        read = StatisticNode.pass_qps
+
+        def slow_read(self, now=None):
+            qps = read(self, now)
+            time.sleep(0.0005)
+            return qps
+
+        monkeypatch.setattr(StatisticNode, "pass_qps", slow_read)
+        policy = LocalFallbackPolicy(
+            default_action=FallbackAction.THROTTLE, default_count=20.0)
+        passed = []
+
+        def work():
+            passed.append(sum(policy.decide(9).status == TokenStatus.OK
+                              for _ in range(40)))
+
+        threads = [threading.Thread(target=work) for _ in range(8)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(30)
+        assert sum(passed) == 20
+        assert policy.stats()["passed"] == 20
+        assert policy.stats()["blocked"] == 8 * 40 - 20
+
     def test_throttle_pacing_mode(self, manual_clock):
         policy = LocalFallbackPolicy(
             [FallbackRule(4, FallbackAction.THROTTLE, count=1000.0,

@@ -12,7 +12,10 @@ and after the Envoy RLS service answered a request through the native
 codec and a ``RoutingTokenClient`` followed a namespace MOVE between two
 port doors. The adapters and the data sources import with JAX, the JAX
 package and every optional framework blocked, and the gRPC interceptors
-then raise ``ImportError``. The subprocesses write their stat logs into the test's temporary
+then raise ``ImportError``. The operator's surface (``init_default``'s
+command center, ``setClusterMode`` promoting a native door with a
+``metrics_port``, a scrape of both exporters, the metric log, a
+``ClusterStateManager`` demotion) serves with neither loaded. The subprocesses write their stat logs into the test's temporary
 directory."""
 
 import os
@@ -44,6 +47,11 @@ ADAPTERS = ("adapters", "adapters.decorator", "adapters.origin",
             "adapters.gateway", "adapters.http_client",
             "adapters.grpc_interceptor", "adapters.aiohttp_middleware",
             "adapters.tornado_handler")
+# the operator's surface (ROADMAP items 8 and 14)
+OPERATOR = ("core.httpd", "metrics", "metrics.exporter", "metrics.log",
+            "transport", "transport.command", "transport.command_asgi",
+            "transport.handlers", "transport.heartbeat", "cluster.assign",
+            "ha.manager", "init")
 DATASOURCES = ("datasource", "datasource.base", "datasource.file",
                "datasource.http_util", "datasource.push_base",
                "datasource.converters", "datasource.consul",
@@ -80,7 +88,7 @@ def test_port_modules_import_without_jax(tmp_path):
                 "local.param", "cluster.api", "ha.endpoints", "ha.fallback",
                 "ha.failover", "stats.events", "sketch.parity",
                 "cluster.namespaces", "cluster.routing",
-                "cluster.envoy_rls") + ADAPTERS + DATASOURCES:
+                "cluster.envoy_rls") + ADAPTERS + DATASOURCES + OPERATOR:
         assert f"sentinel_tpu_torch.{mod}" in names, mod
     code = (
         "import importlib, sys\n"
@@ -360,7 +368,7 @@ from sentinel_tpu_torch.local import stat
 from sentinel_tpu_torch.native.lib import NativeWindow
 
 assert stat._NATIVE
-assert not hasattr(ha, "ClusterStateManager")  # waits for the transport
+assert ha.ClusterStateManager.__module__ == "sentinel_tpu_torch.ha.manager"
 svc = DefaultTokenService(EngineConfig(max_flows=8, max_namespaces=2,
                                        batch_size=64), device="cpu")
 svc.load_rules([ClusterFlowRule(1, 2.0)])
@@ -514,6 +522,69 @@ def test_adapters_and_datasources_import_without_frameworks(tmp_path):
     lazy = [m for m in ADAPTERS + DATASOURCES
             if m != "adapters.grpc_interceptor"]
     code = _WITHOUT_FRAMEWORKS.format(repo=REPO, blocked=BLOCKED, lazy=lazy)
+    out = subprocess.run(
+        [sys.executable, "-I", "-c", code], capture_output=True, text=True,
+        timeout=300, cwd=REPO, env=_env(tmp_path),
+    )
+    assert out.returncode == 0, out.stderr[-2000:]
+
+
+_OPERATOR_SERVES = """
+import json, sys, urllib.request
+sys.path.insert(0, {repo!r})
+import sentinel_tpu_torch
+from sentinel_tpu_torch import init
+from sentinel_tpu_torch.cluster import api as cluster_api
+from sentinel_tpu_torch.cluster.server_native import NativeTokenServer
+from sentinel_tpu_torch.cluster.token_service import DefaultTokenService
+from sentinel_tpu_torch.core.config import SentinelConfig
+from sentinel_tpu_torch.engine import ClusterFlowRule, EngineConfig
+from sentinel_tpu_torch.ha import ClusterStateManager
+from sentinel_tpu_torch.metrics.log import MetricTimer, MetricWriter
+from sentinel_tpu_torch.transport import handlers as H
+
+assert sentinel_tpu_torch.__version__ == "0.1.0"
+cfg = EngineConfig(max_flows=8, max_namespaces=2, batch_size=64)
+def factory(cls, host, port):
+    return cls(DefaultTokenService(cfg, device="cpu"), host=host, port=port,
+               metrics_port=0, idle_ttl_s=None)
+SentinelConfig.set("csp.sentinel.cluster.server.native", "true")
+rt = init.init_default(command_port=0, server_factory=factory,
+                       with_metric_log=False)
+base = "http://127.0.0.1:%d/" % rt.command_center.port
+def get(path):
+    with urllib.request.urlopen(base + path, timeout=120) as r:
+        return r.read().decode()
+try:
+    assert get("setClusterMode?mode=1&tokenPort=0") == "success"
+    door = H._EMBEDDED_SERVER["server"]
+    assert isinstance(door, NativeTokenServer) and door.metrics_port
+    svc = cluster_api.get_embedded_server()
+    svc.load_rules([ClusterFlowRule(1, 2.0)])
+    assert [svc.request_token(1).ok for _ in range(3)] == [True, True, False]
+    body = get("metric/prometheus")
+    assert 'torch_backend="cpu"' in body, body[-400:]
+    with urllib.request.urlopen(
+            "http://127.0.0.1:%d/metrics" % door.metrics_port) as r:
+        assert "sentinel_server_verdicts_total" in r.read().decode()
+    assert json.loads(get("cluster/server/metrics"))["1"]
+    timer = MetricTimer(MetricWriter(base_dir={tmp!r}))
+    timer.writer.write(timer.collect_once())
+    timer.writer.close()
+    ClusterStateManager(factory).to_off()
+    assert cluster_api.get_embedded_server() is None
+finally:
+    init.shutdown()
+bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
+             or m == "sentinel_tpu" or m.startswith("sentinel_tpu."))
+assert not bad, bad
+"""
+
+
+def test_operator_surface_serves_without_jax(tmp_path):
+    if not (shutil.which("g++") or shutil.which("c++")):
+        pytest.skip("no C++ compiler on PATH to build the native library")
+    code = _OPERATOR_SERVES.format(repo=REPO, tmp=str(tmp_path / "metrics"))
     out = subprocess.run(
         [sys.executable, "-I", "-c", code], capture_output=True, text=True,
         timeout=300, cwd=REPO, env=_env(tmp_path),

@@ -12,8 +12,8 @@ serving a CPU ``DefaultTokenService``, against the JAX package's.
   ``TestProfilingHook``, ``TestPipelinedDispatch``,
   ``TestReviewRegressions``), driven by the port's ``TokenClient``
   (``TestEmbeddedClusterFlow`` needs the local engine, ROADMAP item 13).
-- ``metrics_port`` refused (ROADMAP item 8), the constructor's signature
-  pinned to the reference's, and hierarchy frames routed to an attached
+- ``metrics_port`` serves the Prometheus exposition (the exporter), the
+  constructor's signature pinned to the reference's, and hierarchy frames routed to an attached
   coordinator through both of the port's doors (NOT_LEASABLE without one).
 """
 
@@ -716,8 +716,21 @@ class TestPipelinedDispatch:
 
 # -- refusals, signature, hierarchy routing ----------------------------------
 def test_metrics_port_is_refused():
-    with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
-        TokenServer(_service(), port=0, metrics_port=0)
+    """No longer refused: ``metrics_port=0`` binds the exporter at start
+    and the scrape answers with the exposition."""
+    import urllib.request
+
+    server = TokenServer(_service(), port=0, metrics_port=0)
+    server.start()
+    try:
+        assert server.metrics_port
+        with urllib.request.urlopen(
+            f"http://127.0.0.1:{server.metrics_port}/metrics", timeout=5
+        ) as rsp:
+            body = rsp.read().decode()
+        assert "sentinel_build_info{" in body and body.endswith("\n")
+    finally:
+        server.stop()
 
 
 def test_door_signature_is_the_reference():

@@ -11,9 +11,10 @@ serving a CPU ``DefaultTokenService``, against the JAX package's door.
   driven by the reference's ``TokenClient``; the xid probe; push frames on a
   rule reload and a breaker trip; ``namespace_index`` against the
   reference's; the shared-memory door.
-- The refusals: ``metrics_port`` raises (``snapshot_dir`` /
-  ``SENTINEL_SNAPSHOT_DIR``, ``standby_of`` and ``replicate_to`` are
-  accepted since the HA slice; ``tests/test_torch_replication.py`` drives
+- The refusals: none of the door's options is refused any more
+  (``metrics_port`` serves the exporter since the operator slice;
+  ``snapshot_dir`` / ``SENTINEL_SNAPSHOT_DIR``, ``standby_of`` and
+  ``replicate_to`` are accepted since the HA slice; ``tests/test_torch_replication.py`` drives
   them), a REPL frame on a server that is not a standby and a torn MOVE
   chunk stream close their connection (a MOVE_BEGIN is acked: the door
   routes MOVE frames to its ``MoveTarget``, ``tests/test_torch_rebalance.py``
@@ -605,17 +606,25 @@ def test_shm_door_serves_a_batch(cxx, tmp_path):
     dict(metrics_port=0),
 ])
 def test_unported_features_are_refused(kw):
-    """Only ``metrics_port`` is still refused; the HA options of the first
-    three cases are ported and land on the server's fields."""
-    if "metrics_port" in kw:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            NativeTokenServer(_service(), port=0, **kw)
-        return
+    """None is refused any more: every option is ported and lands on the
+    server's fields; ``metrics_port`` then serves the exposition."""
     server = NativeTokenServer(_service(), port=0, **kw)
     (key, value), = kw.items()
     assert getattr(server, key) == value
     assert server.tuning_kwargs()[key] == value
     assert not server.is_standby  # nothing is applied before start()
+    if key == "metrics_port":
+        import urllib.request
+
+        server.start()
+        try:
+            assert server.metrics_port
+            with urllib.request.urlopen(
+                f"http://127.0.0.1:{server.metrics_port}/metrics", timeout=5
+            ) as rsp:
+                assert "sentinel_build_info{" in rsp.read().decode()
+        finally:
+            server.stop()
 
 
 def test_snapshot_dir_from_the_environment_is_refused(monkeypatch):
