@@ -252,7 +252,37 @@ Builds the port's CUDA kernels from ``sentinel_tpu_torch/csrc`` (one
    ``modifyFlowRules`` to success and to the first verdict that shows it,
    ``setClusterMode`` and a port move to the first verdict,
    ``cluster/server/metrics`` and the snapshot fetch;
-17. prints the timings, the card's name and power limit, one
+17. the flow axis sharded over a mesh (``phase_mesh``): phase 3's
+   configuration with phase 9's breakers and param rules on
+   ``make_flow_mesh([cuda:0] * 4)``, against the same service with no
+   mesh, on one manual clock. 17a: phase 3's Zipf pulls (the 65,536-row
+   pull as four frames through the fused ladder (4, 2)), reports of the
+   admitted rows and 300 param requests, every answer equal, then every
+   state leaf (gathered across the shards) and the param sketch; 4 decide
+   launches a frame on the mesh, each mesh dispatch sync-free (sync debug
+   mode). 17b: the mesh primary's snapshot restored onto a 2-shard and an
+   unsharded standby, the three ``export_state`` documents equal in every
+   key and the next pulls equal. 17c: ``NativeTokenServer`` over the
+   4-shard service and over the unsharded standby, one ``TokenClient``'s
+   pulls through each equal. It prints the 16384-row pull p50 with and
+   without the mesh and, after every other phase, the decide kernel's
+   device time a shard. Four shards on one card check correctness; they
+   are no scale-out measurement;
+18. the dashboard (``phase_dashboard``, ``tests/torch_dashboard_check.py``):
+   on a manual clock with phase 16's card service and then its torch-ops
+   twin, the port's ``DashboardServer`` over the app's command center: a
+   heartbeat registration, rule CRUD on every type through ``v1/rule``,
+   gateway API definitions, ``v2/rules`` published into a
+   ``FileRuleStore`` the app reads back (cluster-mode rules among them),
+   ``cluster/assign`` promoting the app through its ``server_factory`` to
+   the 100,000-flow token server, seeded entries and pulls, lowered counts
+   published and the entries again, the ``MetricFetcher``'s pull, the
+   metric routes, ``cluster/monitor`` and the unassignment: every answer,
+   entry and pull equal to the twin's, the dashboard's metric totals equal
+   to the app's metric log, one decide launch per device step, each
+   dispatch sync-free; it prints the assignment's and a publish's time to
+   their first verdict, the monitor's bytes and ms and the fetcher's pull;
+19. prints the timings, the card's name and power limit, one
    ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
 
 Any failed check raises and exits non-zero. With no CUDA device, or run from
@@ -5820,6 +5850,448 @@ def operator_client(conn, port: int, flows: int, rows: int) -> None:
     conn.close()
 
 
+MESH_SHARDS = 4  # shards of phase 17's mesh, all on the one card
+MESH_ROUNDS = 3  # lockstep rounds of phase 3's pulls, each with reports
+MESH_PARAM_REQUESTS = 300
+MESH_FUSE_DEPTHS = (4, 2)
+MESH_STANDBY_PULLS = 4  # pulls of each size through the restored services
+MESH_DOOR_PULLS = 20  # 17c's pulls of each size through each door
+MESH_TIMED = 20  # timed 16384-row pulls with and without the mesh
+
+
+def export_docs_diff(a: dict, b: dict) -> list:
+    """The keys in which two ``export_state`` documents differ, a nested
+    block (``flow``, ``param``, ...) key by key (``docs_diff`` at each
+    level, the wall clock included)."""
+    bad = []
+    for key in sorted(set(a) | set(b)):
+        x, y = a.get(key), b.get(key)
+        if isinstance(x, dict) and isinstance(y, dict) and key not in (
+                "slot_of", "ns_of", "param_slot_of", "connected"):
+            bad += [f"{key}.{k}" for k in docs_diff(x, y, skip=())]
+        elif docs_diff({key: x}, {key: y}, skip=()):
+            bad.append(key)
+    return bad
+
+
+def mesh_service(dev, mesh=None, rules=None):
+    """Phase 3's configuration with the fused ladder ``MESH_FUSE_DEPTHS``,
+    on ``mesh`` or on the card alone, with ``rules`` (flow, degrade, param)
+    loaded, or empty (a standby)."""
+    from sentinel_tpu_torch.cluster.token_service import DefaultTokenService
+    from sentinel_tpu_torch.engine import EngineConfig
+
+    cfg = EngineConfig(max_flows=F, max_namespaces=NS, batch_size=SIZES[-1])
+    where = dict(device=dev) if mesh is None else dict(mesh=mesh)
+    svc = DefaultTokenService(cfg, fuse_depths=MESH_FUSE_DEPTHS, **where)
+    if rules is not None:
+        flows, degrade, params = rules
+        # flows first: a restore reloads them before the breakers, and
+        # seats every flow where this service did
+        svc.load_rules(flows, ns_max_qps=1e9)
+        svc.load_degrade_rules(degrade)
+        svc.load_param_rules(params)
+    svc.warmup()
+    return svc
+
+
+def phase_mesh(torch, dev):
+    """Phase 17: the flow axis sharded over ``make_flow_mesh([cuda:0] *
+    4)`` at F = 100,000, against the same service with no mesh, both on the
+    decide kernel and on one manual clock. 17a: phase 3's Zipf pulls (64,
+    1024, 16384 and 65536 rows, the last four frames through the fused
+    ladder (4, 2)), reports of the admitted rows on phase 8's breakers and
+    param requests on the 256 param rules: every verdict, report count and
+    param answer equal, then every state leaf (gathered across the shards)
+    and the param sketch; the decide kernel launches exactly 4 times a
+    frame on the mesh (once a frame with no mesh), and each mesh dispatch
+    runs under torch's sync debug mode. 17b: the mesh primary's snapshot
+    restores into a 2-shard standby and a standby with no mesh: the three
+    ``export_state`` documents equal in every key, and the next pulls equal.
+    17c: ``NativeTokenServer`` over the 4-shard service and over the
+    restored standby with no mesh: one ``TokenClient``'s pulls through each
+    equal. Then the 16384-row pull p50 with and without the mesh. Four
+    shards on one card check correctness; they are no scale-out
+    measurement."""
+    import torch_kernel_check as DC
+    import torch_outcome_check as OCk
+
+    from sentinel_tpu_torch import interop
+    from sentinel_tpu_torch.cluster.client import TokenClient
+    from sentinel_tpu_torch.cluster.server_native import NativeTokenServer
+    from sentinel_tpu_torch.core import clock
+    from sentinel_tpu_torch.ops import cms_cuda
+    from sentinel_tpu_torch.ops import decide_cuda as K
+    from sentinel_tpu_torch.parallel import make_flow_mesh
+
+    t_phase = time.perf_counter()
+    # every shard on the one card (the CPU when rehearsed there)
+    card0 = (torch.device("cuda", 0) if torch.device(dev).type == "cuda"
+             else torch.device(dev))
+    mc = clock.ManualClock(1_700_000_000_000)
+    prev = clock.set_clock(mc)
+    out = {"shards": MESH_SHARDS}
+    try:
+        flows, degrade, params = flow_rules()
+        # loaded namespace by namespace, the order a restore reloads them
+        # in, so that a restored standby seats every flow in the same slot
+        flows = sorted(flows, key=lambda r: (int(r.namespace[2:]),
+                                             r.flow_id))
+        rules = (flows, degrade, params)
+        t0 = time.perf_counter()
+        svc = mesh_service(dev, make_flow_mesh([card0] * MESH_SHARDS), rules)
+        out["mesh_build_s"] = time.perf_counter() - t0
+        ref = mesh_service(dev, None, rules)
+        zipf = DC.ZipfIds(F, alpha=1.1)
+        rng = np.random.default_rng(171)
+        param_fids = [r.flow_id for r in params]
+        advances = itertools.cycle(ADVANCES_MS)
+        frames = launches = 0
+        counted = {"mesh": 0, "ref": 0}
+
+        def frames_of(n):
+            return -(-n // SIZES[-1])
+
+        def step_both(ids, acq=None):
+            nonlocal frames
+            before = K.LAUNCHES["decide_rows"]
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                mat = svc.dispatch_batch_arrays(ids, acq)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            got = mat()
+            counted["mesh"] += K.LAUNCHES["decide_rows"] - before
+            before = K.LAUNCHES["decide_rows"]
+            want = ref.request_batch_arrays(ids, acq)
+            counted["ref"] += K.LAUNCHES["decide_rows"] - before
+            frames += frames_of(len(ids))
+            if not OCk.verdicts_equal([got, want]):
+                raise AssertionError(
+                    f"mesh: verdicts differ from the service with no mesh "
+                    f"at n={len(ids)}")
+            return got
+
+        # --- 17a: pulls, reports and param requests in lockstep ----------
+        per_round = MESH_PARAM_REQUESTS // MESH_ROUNDS
+        reported = cms_launches = 0
+        for r in range(MESH_ROUNDS):
+            for n in PULLS:
+                ids = zipf(rng, n)
+                acq = None if r % 2 == 0 else rng.integers(1, 3, n).astype(
+                    np.int32)
+                st = step_both(ids, acq)[0]
+                fl, rt, exc = OCk.report_rows(rng, ids[st == OCk.OK],
+                                              min(n, 1024))
+                got, want = (svc.report_outcomes(fl, rt, exc),
+                             ref.report_outcomes(fl, rt, exc))
+                if got != want:
+                    raise AssertionError(f"mesh: report counts {got} != "
+                                         f"{want}")
+                reported += got
+                mc.advance(next(advances))
+            for _ in range(per_round):
+                fid = int(rng.choice(param_fids))
+                hashes = [int(h) for h in rng.integers(0, 400,
+                                                       rng.integers(1, 9))]
+                before = cms_cuda.LAUNCHES["cms_decide_update"]
+                a = svc.request_params_token(fid, 1, hashes)
+                cms_launches += (cms_cuda.LAUNCHES["cms_decide_update"]
+                                 - before)
+                b = ref.request_params_token(fid, 1, hashes)
+                if (a.status, a.remaining) != (b.status, b.remaining):
+                    raise AssertionError("mesh: a param answer differs")
+                mc.advance(int(rng.integers(0, 3)))
+        if cms_launches != per_round * MESH_ROUNDS:
+            raise AssertionError(f"mesh: {cms_launches} count-min launches "
+                                 f"for {per_round * MESH_ROUNDS} requests")
+        if counted["mesh"] != MESH_SHARDS * frames or counted["ref"] != frames:
+            raise AssertionError(
+                f"mesh: {counted['mesh']} decide launches on the mesh and "
+                f"{counted['ref']} without it for {frames} frames")
+        launches = counted["mesh"]
+        a = interop.state_to_numpy(svc._state)
+        b = interop.state_to_numpy(ref._state)
+        bad = [k for k in a if a[k].dtype != b[k].dtype
+               or not np.array_equal(a[k], b[k])]
+        pa = interop.param_state_to_numpy(svc._param_state)
+        pb = interop.param_state_to_numpy(ref._param_state)
+        bad += [f"param.{k}" for k in pa if not np.array_equal(pa[k], pb[k])]
+        if bad:
+            raise AssertionError(f"mesh: state leaves differ: {bad}")
+        if svc.breaker_stats() != ref.breaker_stats():
+            raise AssertionError("mesh: breaker stats differ")
+        opened = int((a["breaker.state"] != 0).sum())
+        out["lockstep"] = dict(frames=frames, decide_launches=launches,
+                               twin_launches=counted["ref"],
+                               reported=reported,
+                               param_requests=per_round * MESH_ROUNDS,
+                               cms_launches=cms_launches,
+                               breakers_not_closed=opened)
+        log(f"mesh 17a: {MESH_ROUNDS} rounds of pulls {PULLS} with reports "
+            f"({reported} rows) and {per_round * MESH_ROUNDS} param "
+            f"requests on {MESH_SHARDS} shards equal to the service with no "
+            f"mesh in every verdict and state leaf; {launches} decide "
+            f"launches for {frames} frames ({MESH_SHARDS} a frame), each "
+            f"dispatch sync-free")
+        del ref
+
+        # --- 17b: the snapshot onto a 2-shard and an unsharded standby ----
+        t0 = time.perf_counter()
+        snap = svc.export_state()
+        out["export_s"] = time.perf_counter() - t0
+        standbys = {}
+        for name, mesh in (("2 shards", make_flow_mesh([card0] * 2)),
+                           ("no mesh", None)):
+            s = mesh_service(dev, mesh)
+            t0 = time.perf_counter()
+            s.import_state(snap)
+            out[f"import_s_{name.replace(' ', '_')}"] = (
+                time.perf_counter() - t0)
+            standbys[name] = s
+        docs = {"4 shards": svc.export_state()}
+        docs.update({k: s.export_state() for k, s in standbys.items()})
+        for name in ("2 shards", "no mesh"):
+            diff = export_docs_diff(docs["4 shards"], docs[name])
+            if diff:
+                raise AssertionError(f"mesh 17b: the {name} standby's "
+                                     f"document differs in {diff}")
+        restored = [svc, *standbys.values()]
+        for _ in range(MESH_STANDBY_PULLS):
+            for n in PULLS:
+                ids = zipf(rng, n)
+                outs = [s.request_batch_arrays(ids) for s in restored]
+                if not OCk.verdicts_equal(outs):
+                    raise AssertionError(f"mesh 17b: the standbys' verdicts "
+                                         f"differ at n={n}")
+                mc.advance(next(advances))
+        out["snapshot"] = dict(
+            keys=len(docs["4 shards"]),
+            flow_counts_bytes=int(docs["4 shards"]["flow"]["counts"].nbytes))
+        log(f"mesh 17b: a 4-shard snapshot restored onto 2 shards and onto "
+            f"no mesh: three documents equal in all "
+            f"{len(docs['4 shards'])} keys, then "
+            f"{MESH_STANDBY_PULLS * len(PULLS)} pulls equal on all three "
+            f"(export {out['export_s']:.2f} s)")
+        del snap, docs
+        plain = standbys["no mesh"]
+        del standbys["2 shards"]
+
+        # --- 17c: the native door over the mesh --------------------------
+        doors = [NativeTokenServer(s, port=0, idle_ttl_s=None)
+                 for s in (svc, plain)]
+        for d in doors:
+            d.start()
+        clients = []
+        try:
+            clients = [TokenClient("127.0.0.1", d.port, timeout_ms=60_000)
+                       for d in doors]
+            served = 0
+            for _ in range(MESH_DOOR_PULLS):
+                for n in SIZES:
+                    ids = zipf(rng, n)
+                    outs = [c.request_batch_arrays(ids) for c in clients]
+                    if outs[0] is None or not OCk.verdicts_equal(outs):
+                        raise AssertionError(
+                            f"mesh 17c: the doors' verdicts differ at n={n}")
+                    served += n
+                    mc.advance(next(advances))
+        finally:
+            for c in clients:
+                c.close()
+            for d in doors:
+                d.stop()
+        out["door"] = dict(pulls=MESH_DOOR_PULLS * len(SIZES),
+                           verdicts=served)
+        log(f"mesh 17c: {served} verdicts through NativeTokenServer over "
+            f"the {MESH_SHARDS}-shard service equal to the door over the "
+            f"service with no mesh")
+
+        # --- timing: a 16384-row pull with and without the mesh ----------
+        lat = {"mesh": [], "no_mesh": []}
+        n = SIZES[-1]
+        for _ in range(MESH_TIMED):
+            ids = zipf(rng, n)
+            for key, s in (("mesh", svc), ("no_mesh", plain)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                s.request_batch_arrays(ids)
+                lat[key].append((time.perf_counter() - t0) * 1e3)
+            mc.advance(7)
+        out["pull_ms"] = {k: quantiles(v) for k, v in lat.items()}
+        log(f"mesh: a {n}-row pull p50 {out['pull_ms']['mesh']['p50']:.3f} "
+            f"ms on {MESH_SHARDS} shards of one card, "
+            f"{out['pull_ms']['no_mesh']['p50']:.3f} ms with no mesh "
+            f"(host clock; four shards on one card check correctness, "
+            f"they are no scale-out measurement)")
+    finally:
+        clock.set_clock(prev)
+
+    def profiled():
+        """Left to the end of the run (see ``phase_service``): the device
+        time of a 16384-row pull on the mesh and each shard's share of the
+        decide kernel's launches."""
+        before = clock.set_clock(mc)
+        try:
+            got = pull_device_time(torch, svc, mc, zipf, rng, SIZES[-1])
+        finally:
+            clock.set_clock(before)
+        got["decide_kernel_ms_a_shard"] = (
+            got["decide_kernel_ms_a_pull"] / MESH_SHARDS)
+        log(f"mesh: the decide kernel's launches take "
+            f"{got['decide_kernel_ms_a_shard']:.4f} ms a shard a "
+            f"{SIZES[-1]}-row pull")
+        return got
+
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"mesh phase: {out['phase_s']:.1f} s ({gpu_identity()})")
+    return out, profiled
+
+
+DASH_SEED = 181
+DASH_CLUSTER_FLOWS = (0, 1, 2, 3)  # phase 3's flows the SDK's cluster rules
+DASH_ROOT = os.path.join(HERE, "sentinel_tpu_torch", "build", "dashboard")
+
+
+def phase_dashboard(torch, dev):
+    """Phase 18: the port's ``DashboardServer`` over phase 16's app surface
+    (``tests/torch_dashboard_check.py``), on a manual clock with a token
+    service on the card and then with its torch-ops twin: a heartbeat
+    registers the app's command center; a rule of every type is created,
+    edited and deleted through ``v1/rule``; the gateway API definitions are
+    replaced; the SDK's flow rules are published through ``v2/rules`` into
+    a ``FileRuleStore`` that the app's ``FileRefreshableDataSource`` reads
+    (every third resource in cluster mode); ``cluster/assign`` promotes the
+    app through its command center's ``server_factory`` to a token server
+    over phase 16's service (phase 3's 100,000 flow rules and 256 param
+    rules); seeded entries and pulls from the embedded service run, lowered
+    counts are published and the entries run again; the dashboard's
+    ``MetricFetcher`` pulls ``/metric``; the metric routes,
+    ``cluster/monitor`` and the assignment views are read; the app is
+    unassigned. Every answer (less times, pids, host names, the build's
+    identity and the server's host latency stats; ports named), entry and
+    pull equal the twin's; the dashboard's metric totals equal the app's
+    metric-log totals; one decide launch per device step and one count-min
+    launch per param check on the card, each dispatch sync-free; no
+    exception in the service. Printed: assignment to its first verdict, a
+    publish to its first verdict, the monitor's read (bytes, ms) and its
+    fetch of ``cluster/server/metrics`` against the ``ApiClient``'s 3 s
+    timeout, and the fetcher's pull."""
+    import torch_dashboard_check as DSH
+    import torch_operator_check as OC
+
+    from sentinel_tpu_torch.core import clock
+    from sentinel_tpu_torch.metrics.stat_logger import LOG_DIR_KEY
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(DASH_ROOT, ignore_errors=True)
+    P = DSH.package("sentinel_tpu_torch")
+    cfg = P.config.SentinelConfig
+    props = dict(cfg._props)
+    t0_ms = int(time.time() * 1000) // 60_000 * 60_000 - 120_000
+    t_build = time.perf_counter()
+    services = {"card": operator_service(dev),
+                "twin": operator_service(dev, twin=True)}
+    for svc in services.values():
+        operator_rules(svc)
+    build_s = time.perf_counter() - t_build
+    runs, recs, timed = {}, {}, {}
+    try:
+        for name, svc in services.items():
+            card = name == "card"
+            rec = recs[name] = dict(steps=0, decide=set(), param_checks=0,
+                                    cms=set(), errors=[])
+            instrument(torch, svc, card, rec)
+
+            def factory(cls, host, port, svc=svc):
+                return cls(svc, host=host, port=port)
+
+            cfg.set(LOG_DIR_KEY, os.path.join(DASH_ROOT, name, "logs"))
+            mc = clock.ManualClock(t0_ms)
+            prev = clock.set_clock(mc)
+            try:
+                runs[name] = DSH.run(
+                    P, mc, factory, os.path.join(DASH_ROOT, name),
+                    free_port(), list(DASH_CLUSTER_FLOWS), DASH_SEED,
+                    timed=(lambda k, v: timed.setdefault(k, v)) if card
+                    else None)
+            finally:
+                clock.set_clock(prev)
+                uninstrument(svc)
+    finally:
+        cfg._props.clear()
+        cfg._props.update(props)
+    a, b = runs["card"], runs["twin"]
+    for key in ("responses", "entries", "pulls", "dashboard_totals",
+                "log_totals"):
+        x, y = a[key], b[key]
+        bad = OC.first_difference(x if isinstance(x, list) else [x],
+                                  y if isinstance(y, list) else [y])
+        if bad:
+            raise AssertionError(f"dashboard 18: {key} differ from the "
+                                 f"twin's: {bad}")
+    for name, r in runs.items():
+        if r["dashboard_totals"] != r["log_totals"]:
+            raise AssertionError(
+                f"dashboard 18 ({name}): the dashboard's metric totals "
+                f"{r['dashboard_totals']} != the metric log's "
+                f"{r['log_totals']}")
+    if a["dashboard_totals"]["pass"] <= 0 or a["dashboard_totals"][
+            "block"] <= 0:
+        raise AssertionError(f"dashboard 18: totals {a['dashboard_totals']}")
+    for name, r in recs.items():
+        want = {1} if name == "card" else {0}
+        if r["errors"]:
+            raise AssertionError(f"dashboard 18 ({name}): service errors "
+                                 f"{r['errors'][:3]}")
+        if r["decide"] != want or (r["cms"] and r["cms"] != want):
+            raise AssertionError(
+                f"dashboard 18 ({name}): decide launches a device step "
+                f"{r['decide']}, count-min launches a param check "
+                f"{r['cms']}, want {want}")
+    answers = {label: text for label, _, text in a["responses"]}
+    if '"server": true' not in answers["assign"] or (
+            '"unassigned": 1' not in answers["unassign"]):
+        raise AssertionError(f"dashboard 18: assign {answers['assign']}, "
+                             f"unassign {answers['unassign']}")
+    verdicts = [v for rnd in a["entries"] for v in rnd]
+    out = dict(
+        service_build_s=build_s, answers=len(a["responses"]),
+        entries=len(verdicts), entry_blocks=verdicts.count("FlowException"),
+        pulls=len(a["pulls"]), device_steps=recs["card"]["steps"],
+        decide_launches=recs["card"]["steps"],
+        param_checks=recs["card"]["param_checks"],
+        cms_launches=recs["card"]["param_checks"],
+        sync_free_dispatches=recs["card"]["steps"],
+        metric_totals=a["dashboard_totals"],
+        assign_to_first_verdict_ms=timed["assign"] * 1e3,
+        push_to_first_verdict_ms=timed["push"] * 1e3,
+        monitor_ms=timed["monitor"] * 1e3,
+        monitor_bytes=int(timed["monitor_bytes"]),
+        server_metrics_ms=timed["server_metrics"] * 1e3,
+        api_client_timeout_ms=P.dash.api_client.ApiClient().timeout_s * 1e3,
+        fetch_ms=timed["fetch"] * 1e3,
+        fetch_delay_ms=P.dash.fetcher.FETCH_DELAY_MS,
+    )
+    log(f"dashboard 18: {out['answers']} answers, {out['entries']} entries "
+        f"({out['entry_blocks']} blocked) and {out['pulls']} pulls equal to "
+        f"the twin; metric totals {out['metric_totals']} equal to the "
+        f"app's metric log; {out['decide_launches']} decide launches for "
+        f"{out['device_steps']} device steps, each sync-free")
+    log(f"dashboard 18: assign to first verdict "
+        f"{out['assign_to_first_verdict_ms']:.1f} ms, a publish to its "
+        f"first verdict {out['push_to_first_verdict_ms']:.1f} ms, "
+        f"cluster/monitor {out['monitor_bytes']} B in "
+        f"{out['monitor_ms']:.1f} ms (its fetch of cluster/server/metrics "
+        f"{out['server_metrics_ms']:.1f} ms of the ApiClient's "
+        f"{out['api_client_timeout_ms']:.0f} ms timeout), the fetcher's pull "
+        f"{out['fetch_ms']:.1f} ms behind its {out['fetch_delay_ms']} ms "
+        f"delay (services built in {build_s:.1f} s)")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"dashboard phase: {out['phase_s']:.1f} s ({gpu_identity()})")
+    return out
+
+
 def window_less_bucket_ms(svc) -> int:
     """A service's window less one bucket, in ms."""
     c = svc.config
@@ -6006,7 +6478,10 @@ def main() -> int:
     control = phase_control(torch, dev)
     adapters = phase_adapters(torch, dev)
     operator = phase_operator(torch, dev)
+    mesh, profiled_mesh = phase_mesh(torch, dev)
+    dashboard = phase_dashboard(torch, dev)
     service[SIZES[-1]].update(profiled_pulls())
+    mesh["profiled"] = profiled_mesh()
     for sketch, kernels_a_call in profiled_params().items():
         param_service[sketch]["profiled"] = kernels_a_call
     outcome["profiled"] = profiled_reports()
@@ -6040,6 +6515,8 @@ def main() -> int:
             + control["routing"]["lockstep"]["decide_launches"]),
         "launches_adapter_phase": adapters["lockstep"]["decide_launches"],
         "launches_operator_phase": operator["lockstep"]["decide_launches"],
+        "launches_mesh_phase": mesh["lockstep"]["decide_launches"],
+        "launches_dashboard_phase": dashboard["decide_launches"],
     }]
     for sketch, name, line in (("cms", "cms_decide_update", 49),
                                ("salsa", "salsa_decide_update", 37)):
@@ -6078,6 +6555,10 @@ def main() -> int:
                                        if sketch == "cms" else 0),
             "launches_operator_phase": (operator["lockstep"]["cms_launches"]
                                         if sketch == "cms" else 0),
+            "launches_mesh_phase": (mesh["lockstep"]["cms_launches"]
+                                    if sketch == "cms" else 0),
+            "launches_dashboard_phase": (dashboard["cms_launches"]
+                                         if sketch == "cms" else 0),
             "parity_steps": param_parity[sketch][1],
             "by_n": {str(n): v for n, v in param_timing[sketch].items()},
         })
@@ -6110,6 +6591,8 @@ def main() -> int:
                     "control": control,
                     "adapters": adapters,
                     "operator": operator,
+                    "mesh": mesh,
+                    "dashboard": dashboard,
                     "gpu": ident}))
     log(ident)
     log(json.dumps({"kernels": kernels}))

@@ -2,8 +2,8 @@
 copy of ``sentinel_tpu/cluster/namespaces.py``).
 
 Tier 1: within one pod, the flow axis of the engine state shards over the
-pod's devices (the reference's ``DefaultTokenService(mesh=...)``; not
-ported yet).
+pod's devices (``DefaultTokenService(mesh=...)`` →
+``parallel.sharding.make_sharded_decide``).
 
 Tier 2: namespaces partition across pods, mirroring the reference's
 ownership model — a namespace is served by exactly ONE token server

@@ -120,6 +120,12 @@ from sentinel_tpu_torch.metrics.ha import ha_metrics
 from sentinel_tpu_torch.metrics.server import server_metrics
 from sentinel_tpu_torch.metrics.stat_logger import log_cluster
 from sentinel_tpu_torch.metrics.timeline import timeline as _timeline
+from sentinel_tpu_torch.parallel.sharding import (
+    MeshState,
+    make_sharded_decide,
+    shard_rules,
+    shard_state,
+)
 from sentinel_tpu_torch.sketch import (
     decoded_counts_np,
     fold_param_sums,
@@ -311,6 +317,15 @@ class DefaultTokenService(TokenService):
     ``device`` defaults to ``cuda``; the tests pass ``device="cpu"``. The
     step updates the state tensors in place (the port of the reference's
     buffer donation); the lock makes the service the state's only user.
+
+    ``mesh`` (a ``parallel.FlowMesh``, exclusive with ``device``) shards the
+    flow axis of the state and the rule table over the mesh's shards, and
+    the decide step runs once per shard (``parallel.make_sharded_decide``);
+    the fused ladder works there too. The param plane and the host-facing
+    tensors live on ``mesh[0]``. Host code reads and writes the state
+    through its global view (``parallel.sharding.MeshState``), so a
+    snapshot or delta document is the same whatever mesh wrote it and
+    imports onto any other mesh, or onto none.
     """
 
     # int32 engine-ms wraps after ~24.8 days; re-base well before that
@@ -325,9 +340,16 @@ class DefaultTokenService(TokenService):
         fuse_depths: Optional[Sequence[int]] = (8, 4, 2),
         lease_ttl_ms: int = 500,
         lease_fraction: float = 0.5,
+        mesh=None,
     ):
         self.config = config or EngineConfig()
-        self.device = resolve_device(device)
+        if mesh is not None and device is not None:
+            raise ValueError(
+                "mesh and device are exclusive: a mesh-backed service lives "
+                "on its mesh's devices"
+            )
+        self.mesh = mesh
+        self.device = mesh[0] if mesh is not None else resolve_device(device)
         if serve_buckets is None:
             buckets = set()
             b = 64
@@ -349,6 +371,7 @@ class DefaultTokenService(TokenService):
         self._fused_steps: Dict[Tuple[int, bool], object] = {}
         self._prep_cache = _PrepCache()
         self._lock = threading.Lock()
+        self._mesh_state: Optional[MeshState] = None
         self._state = make_state(self.config, device=self.device)
         self._table, self._index = build_rule_table(
             self.config, [], device=self.device
@@ -471,26 +494,83 @@ class DefaultTokenService(TokenService):
         order = np.argsort(slots, kind="stable")
         return order, make_batch(cfg, slots[order], acq[order], pr[order])
 
+    # -- the state, and its placement on a mesh ------------------------------
+    @property
+    def _state(self):
+        """The engine state; under a mesh, its global view."""
+        ms = self._mesh_state
+        return self._flat_state if ms is None else ms.view()
+
+    @_state.setter
+    def _state(self, state) -> None:
+        if self.mesh is None:
+            self._flat_state = state
+        elif self._mesh_state is None:
+            self._mesh_state = MeshState(state, self.mesh)
+        else:
+            self._mesh_state.assign(state)
+
+    @property
+    def _table(self):
+        return self._flat_table
+
+    @_table.setter
+    def _table(self, table) -> None:
+        self._flat_table = table
+        self._mesh_table = self._place_rules(table)
+
+    def _place_state(self, state):
+        return state if self.mesh is None else shard_state(state, self.mesh)
+
+    def _place_rules(self, table):
+        return table if self.mesh is None else shard_rules(table, self.mesh)
+
+    def _run_step(self, step, batch, now: int):
+        """One device step (plain or fused) on the service's state: the
+        state's own tensors, or under a mesh its shards. Returns the
+        verdicts."""
+        ms = self._mesh_state
+        if ms is None:
+            self._state, verdicts = step(self._state, self._table, batch, now)
+        else:
+            _, verdicts = step(ms.for_step(), self._mesh_table, batch, now)
+        return verdicts
+
     def _step_fn(self, bucket: int, uniform: bool):
         """The in-place device step for one (shape bucket, uniform)
-        variant, cached per variant."""
+        variant, cached per variant: the single-shard step, or under a mesh
+        the sharded one."""
         key = (bucket, uniform)
         step = self._steps.get(key)
         if step is None:
             cfg = self.config._replace(batch_size=bucket)
-            step = self._steps[key] = decide_donating(
-                cfg, grouped=True, uniform=uniform
-            )
+            if self.mesh is None:
+                step = decide_donating(cfg, grouped=True, uniform=uniform)
+            else:
+                step = make_sharded_decide(
+                    cfg, self.mesh, grouped=True, uniform=uniform,
+                    donate=True,
+                )
+            self._steps[key] = step
         return step
 
     def _fused_step_fn(self, depth: int, uniform: bool):
-        """The chained ``depth``-frame step (full ``batch_size`` frames)."""
+        """The chained ``depth``-frame step (full ``batch_size`` frames);
+        under a mesh each frame's verdicts are stitched across the shards
+        before the next frame decides."""
         key = (depth, uniform)
         step = self._fused_steps.get(key)
         if step is None:
-            step = self._fused_steps[key] = decide_fused_donating(
-                self.config, depth, grouped=True, uniform=uniform
-            )
+            if self.mesh is None:
+                step = decide_fused_donating(
+                    self.config, depth, grouped=True, uniform=uniform
+                )
+            else:
+                step = make_sharded_decide(
+                    self.config, self.mesh, grouped=True, uniform=uniform,
+                    donate=True, depth=depth,
+                )
+            self._fused_steps[key] = step
         return step
 
     def _prep_cached(self, lookup_snap, cfg, bucket, flow_ids, acq, pr):
@@ -723,22 +803,28 @@ class DefaultTokenService(TokenService):
         real request pays no kernel build or allocator growth."""
         with self._lock:
             now = self._engine_now()
-            ws = make_state(self.config, device=self.device)
+            ws = self._place_state(make_state(self.config,
+                                              device=self.device))
+            table = self._mesh_table
             for bucket in self._serve_buckets:
                 cfg = self.config._replace(batch_size=bucket)
                 batch = make_batch(cfg, [-1])
                 for uniform in (True, False):
                     ws, _ = self._step_fn(bucket, uniform)(
-                        ws, self._table, batch, now
+                        ws, table, batch, now
                     )
             base = make_batch(self.config, [-1])
+            # a mesh warms the mixed-acquire fused variants too, as the
+            # reference does
+            fused_uniforms = (True,) if self.mesh is None else (True, False)
             for fdepth in self._fuse_depths:
                 stacked = type(base)(
                     *(np.stack([leaf] * fdepth) for leaf in base)
                 )
-                ws, _ = self._fused_step_fn(fdepth, True)(
-                    ws, self._table, stacked, now
-                )
+                for uniform in fused_uniforms:
+                    ws, _ = self._fused_step_fn(fdepth, uniform)(
+                        ws, table, stacked, now
+                    )
             # the param step at request_params_token's smallest padded
             # shape, on a throwaway sketch (nothing valid)
             pc = self.param_config
@@ -893,9 +979,7 @@ class DefaultTokenService(TokenService):
                                      slots).astype(np.int32)
                     order, batch = self._prep_batch(cfg, slots, acq, pr)
             now = self._engine_now()
-            self._state, verdicts = step(
-                self._state, self._table, batch, now
-            )
+            verdicts = self._run_step(step, batch, now)
             if self._dirty is not None:
                 self._mark_dirty_locked(slots)
         if _TR.ARMED:  # flight recorder: device step submitted
@@ -999,9 +1083,7 @@ class DefaultTokenService(TokenService):
                         np.where(moved_span, np.int32(-1),
                                  span_ns).astype(np.int32), acq, pr)
             now = self._engine_now()
-            self._state, verdicts = step(
-                self._state, self._table, block, now
-            )
+            verdicts = self._run_step(step, block, now)
             if self._dirty is not None:
                 self._mark_dirty_locked(
                     np.concatenate([p[0] for p in preps])
@@ -2067,6 +2149,9 @@ class DefaultTokenService(TokenService):
             )
             self.load_param_rules(param_rules)
             with self._lock:
+                # the reload ran steps-free, but a pull may have run since:
+                # under a mesh of several devices the view is taken anew
+                cur = self._state
                 self.namespace_set |= set(state["namespace_set"])
                 new, old = _remap(self._index.slot_of, state["slot_of"])
                 dev = self.device

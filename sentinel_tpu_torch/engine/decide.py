@@ -23,13 +23,17 @@ Port notes:
   a select on the same predicate where the arms differ). The gated-off arms
   coincide with what the unconditional compute yields, so results stay
   bit-identical, and the step never waits on the device.
-- Mesh sharding (``axis_name``) is not part of this slice.
+- Mesh sharding: the reference's ``axis_name`` becomes ``axis``, a
+  :class:`ShardAxis` (the shard's rank, the mesh size, and its ``psum`` and
+  ``pmax``). ``parallel/sharding.py`` runs this core once per shard with
+  it; ``axis=None`` is the single-shard step, where every hook is the
+  identity.
 """
 
 from __future__ import annotations
 
 import enum
-from typing import NamedTuple, Optional, Sequence
+from typing import Callable, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -81,6 +85,44 @@ class VerdictBatch(NamedTuple):
     status: torch.Tensor  # int8 [N]
     wait_ms: torch.Tensor  # int32 [N]
     remaining: torch.Tensor  # int32 [N]
+
+
+class ShardAxis(NamedTuple):
+    """One shard's view of the flow mesh axis (the reference's
+    ``axis_index`` / ``psum`` / ``pmax`` over ``axis_name``). ``psum`` and
+    ``pmax`` take this shard's tensor and return the reduction over every
+    shard, on this shard's device."""
+
+    rank: int
+    size: int
+    psum: Callable[[torch.Tensor], torch.Tensor]
+    pmax: Callable[[torch.Tensor], torch.Tensor]
+
+
+def _identity(x):
+    return x
+
+
+def shard_slots(flow_slot: torch.Tensor, f_local: int,
+                axis: Optional[ShardAxis]):
+    """``(in_range, safe_slot)`` of global slots for the shard that owns
+    rows ``[rank * f_local, (rank + 1) * f_local)``; rows of another shard,
+    of no rule and of padding are out of range and read local row 0."""
+    if axis is None:
+        in_range = (flow_slot >= 0) & (flow_slot < f_local)
+        return in_range, torch.where(in_range, flow_slot, 0)
+    local = flow_slot - axis.rank * f_local
+    in_range = (flow_slot >= 0) & (local >= 0) & (local < f_local)
+    return in_range, torch.where(in_range, local, 0)
+
+
+def rule_presence(batch, owned: torch.Tensor, axis: Optional[ShardAxis]):
+    """``(live, no_rule)``: valid rows whose flow has a rule on SOME shard
+    (the reference's psum of ownership), and valid rows with none."""
+    has_rule = owned if axis is None else (
+        axis.psum(owned.to(torch.int32)) > 0
+    )
+    return batch.valid & has_rule, batch.valid & ~has_rule
 
 
 def make_batch(
@@ -250,15 +292,20 @@ def _occupy_feasible(
     )
 
 
-def _ns_guard(config, spec, ns_state, rules, now, owned, safe_slot, live):
+def _ns_guard(config, spec, ns_state, rules, now, owned, safe_slot, live,
+              psum=_identity):
     """Namespace guard (request-count qps, ``GlobalRequestLimiter``).
 
     Returns ``(ns_id, ns_ok, seg_ns_sum)``. The reference picks the precise
     arm (an ``[N, NS]`` one-hot cumsum) behind a ``lax.cond`` on "some
     namespace crosses its budget inside this batch"; here both arms run and
-    the same predicate selects."""
+    the same predicate selects. On a mesh ``psum`` gives every shard the
+    owner's namespace id, so the replicated namespace window is updated
+    identically everywhere."""
     slot = safe_slot.to(torch.int64)
-    ns_id = torch.where(owned, rules.namespace_id[slot], 0).to(torch.int64)
+    ns_id = psum(torch.where(owned, rules.namespace_id[slot], 0)).to(
+        torch.int64
+    )
     live_f = live.to(torch.float32)
     NS = config.max_namespaces
 
@@ -302,6 +349,7 @@ def _decide_core(
     now: int,
     grouped: bool = False,
     uniform: bool = False,
+    axis: Optional[ShardAxis] = None,
 ) -> tuple:
     """The decision pipeline in torch ops; updates ``state`` in place and
     returns ``(state, verdicts)``.
@@ -310,6 +358,11 @@ def _decide_core(
     batcher sorted them), so the segment prefix needs no device sort.
     ``uniform``: all live requests acquire the same count, so greedy
     admission has a one-pass closed form.
+    ``axis``: this shard of a flow mesh. The shard owns the flow rows of
+    ``state`` and ``rules`` (global slots ``rank * f_local`` on), evaluates
+    the rows whose flow it owns, and the psums stitch the global picture:
+    rule ownership, namespace ids and the verdicts; a pmax keeps the
+    replicated occupy ``starts`` equal on every shard.
     """
     spec = flow_spec(config)
     now = int(now)
@@ -317,18 +370,17 @@ def _decide_core(
     batch = batch_to(batch, dev)
     N = batch.valid.shape[0]
     f_local = rules.valid.shape[0]
+    psum = _identity if axis is None else axis.psum
 
-    in_range = (batch.flow_slot >= 0) & (batch.flow_slot < f_local)
-    safe_slot = torch.where(in_range, batch.flow_slot, 0)
+    in_range, safe_slot = shard_slots(batch.flow_slot, f_local, axis)
     slot = safe_slot.to(torch.int64)
     owned = in_range & rules.valid[slot]
-    live = batch.valid & owned
-    no_rule = batch.valid & ~owned
+    live, no_rule = rule_presence(batch, owned, axis)
 
     acquire_f = batch.acquire.to(torch.float32)
 
     ns_id, ns_ok, seg_ns_sum = _ns_guard(
-        config, spec, state.ns, rules, now, owned, safe_slot, live
+        config, spec, state.ns, rules, now, owned, safe_slot, live, psum
     )
     too_many = live & ~ns_ok
     ns_admitted = live & ns_ok
@@ -499,6 +551,7 @@ def _decide_core(
         channel_ids=torch.zeros((N,), dtype=torch.int64, device=dev),
         values=batch.acquire,
         valid=can_occupy | pace_later,
+        combine_desired=None if axis is None else axis.pmax,
     )
     W.add_column(spec, state.ns, now, seg_ns_sum(ns_admitted))
 
@@ -506,7 +559,7 @@ def _decide_core(
     verdicts = _verdicts(
         batch, no_rule, too_many, degraded, admit, pace_now, can_occupy,
         pace_later, hard_block, pace_reject, wait_next, pace_wait,
-        threshold, passed, admitted_prefix, acquire_f, br_retry,
+        threshold, passed, admitted_prefix, acquire_f, br_retry, psum,
     )
     return state._replace(breaker=breaker_ws), verdicts
 
@@ -514,9 +567,11 @@ def _decide_core(
 def _verdicts(
     batch, no_rule, too_many, degraded, admit, pace_now, can_occupy,
     pace_later, hard_block, pace_reject, wait_next, pace_wait, threshold,
-    passed, admitted_prefix, acquire_f, br_retry,
+    passed, admitted_prefix, acquire_f, br_retry, psum=_identity,
 ) -> VerdictBatch:
-    """Verdict stitching, shared by both decide backends."""
+    """Verdict stitching, shared by both decide backends: the owner of a
+    row's flow emits ``status + 1``, its wait and its remaining, the other
+    shards zeros, and ``psum`` adds them up."""
     local_status = torch.where(
         degraded,
         int(TokenStatus.DEGRADED) + 1,
@@ -532,6 +587,7 @@ def _verdicts(
             ),
         ),
     ).to(torch.int32)
+    combined = psum(local_status)
     status = torch.where(
         ~batch.valid,
         int(TokenStatus.FAIL),
@@ -541,14 +597,14 @@ def _verdicts(
             torch.where(
                 too_many,
                 int(TokenStatus.TOO_MANY_REQUEST),
-                torch.where(local_status > 0, local_status - 1,
+                torch.where(combined > 0, combined - 1,
                             int(TokenStatus.FAIL)),
             ),
         ),
     ).to(torch.int8)
-    wait_ms = torch.where(
+    wait_ms = psum(torch.where(
         can_occupy, wait_next, torch.where(pace_later, pace_wait, 0)
-    ).to(torch.int32)
+    ).to(torch.int32))
     remaining_local = torch.clamp(
         threshold - passed - admitted_prefix
         - torch.where(admit, acquire_f, 0.0),
@@ -557,9 +613,9 @@ def _verdicts(
     ).to(torch.int32)
     # blocked and paced verdicts carry remaining=0; DEGRADED carries
     # retry-after-ms
-    remaining = torch.where(
+    remaining = psum(torch.where(
         admit, remaining_local, torch.where(degraded, br_retry, 0)
-    ).to(torch.int32)
+    ).to(torch.int32))
     return VerdictBatch(status=status, wait_ms=wait_ms, remaining=remaining)
 
 

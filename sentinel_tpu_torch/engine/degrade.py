@@ -12,6 +12,11 @@ batch"; here it always runs. With no breaker row every mask is False, so the
 outputs equal the gated-off arm bit for bit, and no device-to-host sync is
 needed. A table with ``None`` br_* columns (no degrade rules) skips the arm
 outright, as in the reference.
+
+On a flow mesh the gate takes no shard axis: its outputs are local to the
+shard that owns the row's flow (the verdict psum stitches them), and the
+reference's one psum here only feeds that ``lax.cond``'s mesh-uniform
+predicate.
 """
 
 from __future__ import annotations

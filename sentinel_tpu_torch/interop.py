@@ -10,6 +10,11 @@ comes out of any ``NamedTuple`` tree whose leaves numpy can read, so a JAX
 ``EngineState`` or ``ParamState`` flattens to an identical dict and both
 packages can step the same state.
 
+A leaf may be sharded: a JAX array sharded over a mesh reads whole through
+``np.asarray``, as does a port ``parallel.sharding.ShardedTensor``; and
+:func:`state_from_numpy` / :func:`rules_from_numpy` place their result on a
+port mesh when given one.
+
 Rules cross by field name: :func:`port_rule` turns any object with a rule's
 fields (the reference's dataclasses in a state export) into the port's rule
 of that kind.
@@ -61,12 +66,22 @@ def state_to_numpy(state) -> Dict[str, np.ndarray]:
     }
 
 
+def _device_of(device: DeviceLike, mesh) -> torch.device:
+    if mesh is None:
+        return resolve_device(device)
+    if device is not None:
+        raise ValueError("mesh and device are exclusive")
+    return mesh[0]
+
+
 def state_from_numpy(d: Dict[str, np.ndarray],
-                     device: DeviceLike = None) -> EngineState:
+                     device: DeviceLike = None, mesh=None) -> EngineState:
     """An :class:`EngineState` on ``device`` (``cuda`` unless told
-    otherwise) from a :func:`state_to_numpy` dict; dtypes are kept."""
-    dev = resolve_device(device)
-    return EngineState(**{
+    otherwise) from a :func:`state_to_numpy` dict; dtypes are kept. With a
+    ``mesh`` (a ``parallel.FlowMesh``, exclusive with ``device``) the state
+    comes back sharded over it."""
+    dev = _device_of(device, mesh)
+    state = EngineState(**{
         plane: cls(**{
             field: torch.as_tensor(np.array(d[f"{plane}.{field}"]),
                                    device=dev)
@@ -74,6 +89,11 @@ def state_from_numpy(d: Dict[str, np.ndarray],
         })
         for plane, cls in _PLANES.items()
     })
+    if mesh is None:
+        return state
+    from sentinel_tpu_torch.parallel.sharding import shard_state
+
+    return shard_state(state, mesh)
 
 
 def rules_to_numpy(rules) -> Dict[str, np.ndarray]:
@@ -86,13 +106,20 @@ def rules_to_numpy(rules) -> Dict[str, np.ndarray]:
 
 
 def rules_from_numpy(d: Dict[str, np.ndarray],
-                     device: DeviceLike = None) -> RuleTable:
-    dev = resolve_device(device)
-    return RuleTable(**{
+                     device: DeviceLike = None, mesh=None) -> RuleTable:
+    """A :class:`RuleTable` from a :func:`rules_to_numpy` dict, on
+    ``device`` or sharded over ``mesh``."""
+    dev = _device_of(device, mesh)
+    table = RuleTable(**{
         field: (torch.as_tensor(np.array(d[field]), device=dev)
                 if field in d else None)
         for field in RuleTable._fields
     })
+    if mesh is None:
+        return table
+    from sentinel_tpu_torch.parallel.sharding import shard_rules
+
+    return shard_rules(table, mesh)
 
 
 def param_state_to_numpy(state) -> Dict[str, np.ndarray]:

@@ -28,7 +28,8 @@ path. The state is updated in place (the reference aliases the flow plane,
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
+import threading
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -48,8 +49,11 @@ from sentinel_tpu_torch.stats import window as W
 # the kernel keeps the window starts of one ring in shared memory
 MAX_BUCKETS = 64
 
-# kernel launches on CUDA tensors, by wrapper; CPU calls do not count
+# kernel launches on CUDA tensors, by wrapper; CPU calls do not count. The
+# shards of a flow mesh launch from threads of their own, so a count is
+# taken under a lock.
 LAUNCHES = {"decide_rows": 0}
+_COUNT_LOCK = threading.Lock()
 
 # The decide launch's grid: at most one block per SM of an H100 (132), each
 # with a nominal range of MIN_CHUNK rows or more. Any grid gives the same
@@ -397,7 +401,8 @@ def decide_rows(
     )
     if err != 0:
         raise RuntimeError(f"decide kernel launch failed: CUDA error {err}")
-    LAUNCHES["decide_rows"] += 1
+    with _COUNT_LOCK:
+        LAUNCHES["decide_rows"] += 1
     return out
 
 
@@ -409,17 +414,21 @@ def decide_core_kernel(
     now: int,
     grouped: bool = False,
     uniform: bool = False,
+    axis: Optional[object] = None,
 ) -> tuple:
     """Drop-in ``_decide_core`` twin backed by the kernel: same signature,
     same outputs, bitwise-equal results, state updated in place. Requires
     the grouped-batch contract; non-grouped calls take the torch-ops
-    pipeline."""
+    pipeline. Under a flow mesh (``axis``, an ``engine.decide.ShardAxis``)
+    the prologue and epilogue take the same hooks as ``_decide_core``; the
+    launch is unchanged, and rows of another shard's flows are out-of-range
+    rows for it."""
     import importlib
 
     D = importlib.import_module("sentinel_tpu_torch.engine.decide")
     if not grouped:
         return D._decide_core(config, state, rules, batch, now,
-                              grouped=grouped, uniform=uniform)
+                              grouped=grouped, uniform=uniform, axis=axis)
     if config.admission_refine_iters % 2 == 0:
         raise ValueError("admission_refine_iters must be odd")
 
@@ -430,17 +439,17 @@ def decide_core_kernel(
     N = batch.valid.shape[0]
     f_local = rules.valid.shape[0]
 
+    psum = D._identity if axis is None else axis.psum
+
     # ---- prologue: [N]-sized setup, namespace guard, breakers ------------
-    in_range = (batch.flow_slot >= 0) & (batch.flow_slot < f_local)
-    safe_slot = torch.where(in_range, batch.flow_slot, 0)
+    in_range, safe_slot = D.shard_slots(batch.flow_slot, f_local, axis)
     slot = safe_slot.to(torch.int64)
     owned = in_range & rules.valid[slot]
-    live = batch.valid & owned
-    no_rule = batch.valid & ~owned
+    live, no_rule = D.rule_presence(batch, owned, axis)
     acquire_f = batch.acquire.to(torch.float32)
 
     ns_id, ns_ok, seg_ns_sum = D._ns_guard(
-        config, spec, state.ns, rules, now, owned, safe_slot, live
+        config, spec, state.ns, rules, now, owned, safe_slot, live, psum
     )
     too_many = live & ~ns_ok
     ns_admitted = live & ns_ok
@@ -519,6 +528,7 @@ def decide_core_kernel(
         channel_ids=torch.zeros((N,), dtype=torch.int64, device=dev),
         values=batch.acquire,
         valid=can_occupy | pace_later,
+        combine_desired=None if axis is None else axis.pmax,
     )
     W.add_column(spec, state.ns, now, seg_ns_sum(ns_admitted))
 
@@ -526,6 +536,6 @@ def decide_core_kernel(
         batch, no_rule, too_many, degraded, admit, pace_now, can_occupy,
         pace_later, hard_block, pace_reject, wait_next, pace_wait,
         rows.threshold, rows.passed, rows.admitted_prefix, acquire_f,
-        br_retry,
+        br_retry, psum,
     )
     return state._replace(breaker=breaker_ws), verdicts

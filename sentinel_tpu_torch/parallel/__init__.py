@@ -1,0 +1,23 @@
+"""Scale-out: the flow axis sharded over a mesh of shards.
+
+Port of ``sentinel_tpu/parallel``. Resource parallelism (independent
+counters per flowId) is the flow axis cut into shards; namespace parallelism
+stays a partition of that axis; and the reference's XLA collectives are
+three small ``[batch]``-sized psums a step (ownership, namespace ids,
+verdicts) between one thread per shard, while the ``[flows, buckets,
+events]`` counter tensors never leave their shard.
+"""
+
+from sentinel_tpu_torch.parallel.sharding import (
+    make_flow_mesh,
+    make_sharded_decide,
+    shard_state,
+    shard_rules,
+)
+
+__all__ = [
+    "make_flow_mesh",
+    "make_sharded_decide",
+    "shard_state",
+    "shard_rules",
+]

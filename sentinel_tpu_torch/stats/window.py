@@ -324,6 +324,7 @@ def add_future(
     channel_ids: torch.Tensor,
     values: torch.Tensor,
     valid: Optional[torch.Tensor] = None,
+    combine_desired=None,
 ) -> WindowState:
     """Scatter-add into the bucket ``wait_ms`` ahead of ``now``, in place
     (``OccupiableBucketLeapArray.addWaiting``).
@@ -333,6 +334,10 @@ def add_future(
     resets. The reference gates the full-tensor reset multiply behind a
     ``lax.cond``; here it always runs (multiplying by 1 is exact), which
     keeps the step free of device-to-host syncs.
+
+    ``combine_desired`` (a max over the shards of a flow mesh) lets sharded
+    callers agree on the slots to reset, so the replicated ``starts`` stay
+    identical on every shard when only the owner shard sees a borrow.
     """
     now = int(now)
     wait_ms = wait_ms.to(torch.int32)
@@ -351,6 +356,8 @@ def add_future(
 
     desired = torch.full_like(ws.starts, NEVER)
     desired.scatter_reduce_(0, idx.to(torch.int64), start, "amax")
+    if combine_desired is not None:
+        desired = combine_desired(desired)
     needs_reset = (desired != NEVER) & (desired != ws.starts)
     keep = (~needs_reset).to(ws.counts.dtype)
     ws.counts.mul_(keep[None, :, None])

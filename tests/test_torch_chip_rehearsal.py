@@ -150,3 +150,31 @@ def test_phase_operator_rehearses_on_the_cpu(smoke, monkeypatch, tmp_path):
     assert timed["loop"]["quiet"]["pulls"] > 0
     assert timed["modify_flow_rules_first_verdict_ms"]["n"] == 1
     assert timed["snapshot_fetch_bytes"] > 0
+
+
+def test_phase_mesh_rehearses_on_the_cpu(smoke, monkeypatch):
+    """Phase 17 with the mesh's four shards on the CPU."""
+    for name, value in dict(
+            PULLS=(64, 256, 1024, 4096), MESH_ROUNDS=2,
+            MESH_PARAM_REQUESTS=40, MESH_STANDBY_PULLS=1, MESH_DOOR_PULLS=2,
+            MESH_TIMED=2).items():
+        monkeypatch.setattr(smoke, name, value)
+    monkeypatch.setattr(smoke, "gpu_identity", lambda: "cpu")
+    out, _profiled = smoke.phase_mesh(torch, "cpu")
+    lock = out["lockstep"]
+    assert lock["frames"] == 2 * (3 + 4)
+    assert lock["decide_launches"] == 4 * lock["frames"]
+    assert lock["twin_launches"] == lock["frames"]
+    assert lock["reported"] > 0 and lock["breakers_not_closed"] > 0
+    assert out["door"]["verdicts"] == 2 * (64 + 256 + 1024)
+    assert out["pull_ms"]["mesh"]["n"] == 2
+
+
+def test_phase_dashboard_rehearses_on_the_cpu(smoke, monkeypatch, tmp_path):
+    """Phase 18 at 3,000 flows, its files in the test's directory."""
+    monkeypatch.setattr(smoke, "DASH_ROOT", str(tmp_path))
+    monkeypatch.setattr(smoke, "gpu_identity", lambda: "cpu")
+    out = smoke.phase_dashboard(torch, "cpu")
+    assert out["decide_launches"] == out["device_steps"] > 0
+    assert out["entry_blocks"] > 0 and out["pulls"] == 9
+    assert out["monitor_bytes"] > 0

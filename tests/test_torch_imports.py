@@ -15,7 +15,10 @@ package and every optional framework blocked, and the gRPC interceptors
 then raise ``ImportError``. The operator's surface (``init_default``'s
 command center, ``setClusterMode`` promoting a native door with a
 ``metrics_port``, a scrape of both exporters, the metric log, a
-``ClusterStateManager`` demotion) serves with neither loaded. The subprocesses write their stat logs into the test's temporary
+``ClusterStateManager`` demotion) serves with neither loaded. So do the
+flow mesh (a service on four CPU shards answering a pull) and the dashboard
+(a heartbeat registering a machine, a rule pushed through ``v1/rule``).
+The subprocesses write their stat logs into the test's temporary
 directory."""
 
 import os
@@ -52,6 +55,12 @@ OPERATOR = ("core.httpd", "metrics", "metrics.exporter", "metrics.log",
             "transport", "transport.command", "transport.command_asgi",
             "transport.handlers", "transport.heartbeat", "cluster.assign",
             "ha.manager", "init")
+# the mesh and the dashboard (ROADMAP items 7 and 17)
+MESH_AND_DASHBOARD = ("parallel", "parallel.sharding", "dashboard",
+                      "dashboard.discovery", "dashboard.repository",
+                      "dashboard.rules_repo", "dashboard.validation",
+                      "dashboard.api_client", "dashboard.fetcher",
+                      "dashboard.dynamic_rules", "dashboard.server")
 DATASOURCES = ("datasource", "datasource.base", "datasource.file",
                "datasource.http_util", "datasource.push_base",
                "datasource.converters", "datasource.consul",
@@ -88,7 +97,8 @@ def test_port_modules_import_without_jax(tmp_path):
                 "local.param", "cluster.api", "ha.endpoints", "ha.fallback",
                 "ha.failover", "stats.events", "sketch.parity",
                 "cluster.namespaces", "cluster.routing",
-                "cluster.envoy_rls") + ADAPTERS + DATASOURCES + OPERATOR:
+                "cluster.envoy_rls") + ADAPTERS + DATASOURCES + OPERATOR \
+            + MESH_AND_DASHBOARD:
         assert f"sentinel_tpu_torch.{mod}" in names, mod
     code = (
         "import importlib, sys\n"
@@ -585,6 +595,58 @@ def test_operator_surface_serves_without_jax(tmp_path):
     if not (shutil.which("g++") or shutil.which("c++")):
         pytest.skip("no C++ compiler on PATH to build the native library")
     code = _OPERATOR_SERVES.format(repo=REPO, tmp=str(tmp_path / "metrics"))
+    out = subprocess.run(
+        [sys.executable, "-I", "-c", code], capture_output=True, text=True,
+        timeout=300, cwd=REPO, env=_env(tmp_path),
+    )
+    assert out.returncode == 0, out.stderr[-2000:]
+
+
+_MESH_AND_DASHBOARD_SERVE = """
+import json, sys, urllib.request
+sys.path.insert(0, {repo!r})
+import numpy as np
+import torch
+from sentinel_tpu_torch.cluster.token_service import DefaultTokenService
+from sentinel_tpu_torch.dashboard import DashboardServer
+from sentinel_tpu_torch.engine import ClusterFlowRule, EngineConfig
+from sentinel_tpu_torch.local import FlowRuleManager
+from sentinel_tpu_torch.parallel import make_flow_mesh
+from sentinel_tpu_torch.transport.command import CommandCenter
+from sentinel_tpu_torch.transport.heartbeat import HeartbeatSender
+
+mesh = make_flow_mesh([torch.device("cpu")] * 4)
+svc = DefaultTokenService(EngineConfig(max_flows=16, max_namespaces=2,
+                                       batch_size=64), mesh=mesh)
+svc.load_rules([ClusterFlowRule(f, 2.0) for f in range(8)])
+st, _r, _w = svc.request_batch_arrays(np.asarray([1, 1, 1, 6, 99]))
+assert st.tolist() == [0, 0, 1, 0, 3], st
+dash = DashboardServer(port=0).start()
+cc = CommandCenter(port=0).start()
+try:
+    assert HeartbeatSender(["127.0.0.1:%d" % dash.port],
+                           command_port=cc.port,
+                           client_ip="127.0.0.1").send_once()
+    req = urllib.request.Request(
+        "http://127.0.0.1:%d/v1/rule?app=sentinel-tpu-app&type=flow"
+        % dash.port, data=json.dumps({{"resource": "r", "count": 3}}).encode(),
+        method="POST")
+    with urllib.request.urlopen(req, timeout=30) as rsp:
+        assert json.loads(rsp.read())["pushed"] == 1
+    assert [r.count for r in FlowRuleManager.get_rules("r")] == [3.0]
+finally:
+    cc.stop()
+    dash.stop()
+bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
+             or m == "sentinel_tpu" or m.startswith("sentinel_tpu."))
+assert not bad, bad
+"""
+
+
+def test_mesh_and_dashboard_serve_without_jax(tmp_path):
+    if not (shutil.which("g++") or shutil.which("c++")):
+        pytest.skip("no C++ compiler on PATH to build the native library")
+    code = _MESH_AND_DASHBOARD_SERVE.format(repo=REPO)
     out = subprocess.run(
         [sys.executable, "-I", "-c", code], capture_output=True, text=True,
         timeout=300, cwd=REPO, env=_env(tmp_path),
