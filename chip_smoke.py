@@ -669,10 +669,11 @@ def phase_service(torch, dev):
 
 
 def pull_device_time(torch, svc, mc, zipf, rng, n: int, pulls: int = 5):
-    """Device time of one served ``n``-row pull and the decide kernel's
-    share of it, from a ``torch.profiler`` trace of ``pulls`` pulls (device
-    rows only, each counted once). The profiler slows the host, so the wall
-    time of these pulls is not reported."""
+    """Device time of one served ``n``-row pull, the decide kernel's share
+    of it, the device operations a pull (kernels, copies, fills) and the
+    five that take the most time, from a ``torch.profiler`` trace of
+    ``pulls`` pulls (device rows only, each counted once). The profiler slows the host, so the wall time of
+    these pulls is not reported."""
     from torch.profiler import ProfilerActivity, profile
 
     batches = [zipf(rng, n) for _ in range(pulls)]
@@ -684,9 +685,13 @@ def pull_device_time(torch, svc, mc, zipf, rng, n: int, pulls: int = 5):
             mc.advance(7)
         torch.cuda.synchronize()
     total_us = kernel_us = 0.0
+    ops, by_name = 0, []
     for evt in prof.key_averages():
         if str(evt.device_type).endswith("CUDA"):
             total_us += evt.self_device_time_total
+            ops += evt.count
+            by_name.append((evt.self_device_time_total, evt.key[:60],
+                            evt.count))
             if "decide_kernel" in evt.key or "roll_kernel" in evt.key:
                 kernel_us += evt.self_device_time_total
     if total_us <= 0.0 or kernel_us <= 0.0:
@@ -695,10 +700,16 @@ def pull_device_time(torch, svc, mc, zipf, rng, n: int, pulls: int = 5):
             f"time over {pulls} pulls, {kernel_us} us of it in the decide "
             f"kernel's launches")
     out = dict(device_ms_a_pull=total_us / pulls / 1e3,
-               decide_kernel_ms_a_pull=kernel_us / pulls / 1e3)
+               decide_kernel_ms_a_pull=kernel_us / pulls / 1e3,
+               device_ops_a_pull=ops / pulls,
+               top=[dict(kernel=name, ms_a_pull=us / pulls / 1e3,
+                         a_pull=count / pulls)
+                    for us, name, count in sorted(by_name, reverse=True)[:5]])
     log(f"service n={n}: device busy {out['device_ms_a_pull']:.4f} ms a "
-        f"pull over {pulls} profiled pulls, of which the decide kernel's two "
-        f"launches {out['decide_kernel_ms_a_pull']:.4f} ms "
+        f"pull over {pulls} profiled pulls in {ops / pulls:.1f} device "
+        f"operations (kernels, copies, fills), of which the decide "
+        f"kernel's launches "
+        f"{out['decide_kernel_ms_a_pull']:.4f} ms "
         f"({100 * kernel_us / total_us:.1f}%)")
     return out
 
@@ -5857,6 +5868,88 @@ MESH_FUSE_DEPTHS = (4, 2)
 MESH_STANDBY_PULLS = 4  # pulls of each size through the restored services
 MESH_DOOR_PULLS = 20  # 17c's pulls of each size through each door
 MESH_TIMED = 20  # timed 16384-row pulls with and without the mesh
+MESH_LAUNCH_REPS = 50  # CUDA-event reps of each captured decide launch
+MESH_EMPTY_SHARD = 2  # the shard that owns no row of 17a's last frame
+
+
+def mesh_slots(svc, ids) -> np.ndarray:
+    """The global slot of each flow id of ``ids`` (-1: no rule)."""
+    keys, vals = svc._lookup
+    pos = np.clip(np.searchsorted(keys, ids), 0, max(len(keys) - 1, 0))
+    return np.where(keys[pos] == ids, vals[pos], -1)
+
+
+def owned_launches(svc, ids, cap: int, shards: int) -> list:
+    """The decide launches a mesh of ``shards`` must make for the pull
+    ``ids``, as sorted ``(shard, rows)``: per frame of ``cap`` rows (request
+    order, as the service cuts them), one for each shard, covering exactly
+    the rows it owns (none: the launch only rolls its window)."""
+    slots = mesh_slots(svc, ids)
+    f_local = svc.config.max_flows // shards
+    want = []
+    for lo in range(0, len(ids), cap):
+        frame = slots[lo:lo + cap]
+        for r in range(shards):
+            want.append((r, int(((frame >= r * f_local)
+                                 & (frame < (r + 1) * f_local)).sum())))
+    return sorted(want)
+
+
+class LaunchLog:
+    """Wraps ``decide_cuda.decide_rows`` from ``start`` to ``stop``:
+    records each call's
+    flow plane and row count, and, while ``capture`` is set, a copy of its
+    inputs to replay (the state it updates in place is cloned first)."""
+
+    def __init__(self, K):
+        self.K = K
+        self.real = K.decide_rows
+        self.calls = []
+        self.captured = []
+        self.capture = False
+
+    def start(self) -> None:
+        def recorded(config, flow_counts, occ, fstarts, ostarts, now, cols,
+                     uniform):
+            self.calls.append((flow_counts.data_ptr(),
+                               int(cols["safe_slot"].shape[0])))
+            if self.capture:
+                self.captured.append((flow_counts.data_ptr(), (
+                    config, flow_counts.clone(), occ, fstarts.clone(),
+                    ostarts, now, cols, uniform)))
+            return self.real(config, flow_counts, occ, fstarts, ostarts,
+                             now, cols, uniform)
+
+        self.K.decide_rows = recorded
+
+    def stop(self) -> None:
+        self.K.decide_rows = self.real
+
+    def take(self) -> list:
+        calls, self.calls = self.calls, []
+        return calls
+
+
+def replay_launch(torch, K, args) -> dict:
+    """One captured decide launch on copies of its state: the kernel
+    against its plain version (bitwise), and the kernel's device ms."""
+    def fresh():
+        return (args[0], args[1].clone(), args[2], args[3].clone(),
+                *args[4:])
+
+    ka, pa = fresh(), fresh()
+    got, want = K.decide_rows(*ka), K.decide_rows_plain(*pa)
+    bad = [f for f, g, w in zip(K.DecideRows._fields, got, want)
+           if not torch.equal(g, w)]
+    bad += [name for name, i in (("flow_counts", 1), ("fstarts", 3))
+            if not torch.equal(ka[i], pa[i])]
+    if bad:
+        raise AssertionError(f"mesh: a captured decide launch differs from "
+                             f"its plain version in {bad}")
+    timed = fresh()
+    return dict(rows=int(args[6]["safe_slot"].shape[0]),
+                ms=cuda_ms(lambda: K.decide_rows(*timed), MESH_LAUNCH_REPS,
+                           torch))
 
 
 def export_docs_diff(a: dict, b: dict) -> list:
@@ -5903,15 +5996,20 @@ def phase_mesh(torch, dev):
     ladder (4, 2)), reports of the admitted rows on phase 8's breakers and
     param requests on the 256 param rules: every verdict, report count and
     param answer equal, then every state leaf (gathered across the shards)
-    and the param sketch; the decide kernel launches exactly 4 times a
-    frame on the mesh (once a frame with no mesh), and each mesh dispatch
-    runs under torch's sync debug mode. 17b: the mesh primary's snapshot
+    and the param sketch; on the mesh each shard launches the decide kernel
+    once a frame for exactly the rows it owns (once a frame with no mesh),
+    and each mesh dispatch runs under torch's sync debug mode. The last
+    frame, at a new bucket, leaves shard ``MESH_EMPTY_SHARD`` without a
+    row: its launch only rolls its window, and is held against its plain
+    version. 17b: the mesh primary's snapshot
     restores into a 2-shard standby and a standby with no mesh: the three
     ``export_state`` documents equal in every key, and the next pulls equal.
     17c: ``NativeTokenServer`` over the 4-shard service and over the
     restored standby with no mesh: one ``TokenClient``'s pulls through each
-    equal. Then the 16384-row pull p50 with and without the mesh. Four
-    shards on one card check correctness; they are no scale-out
+    equal. Then the 16384-row pull p50 with and without the mesh, and
+    each shard's decide launch of one such pull beside the launch with no
+    mesh: its rows, the kernel against its plain version, its device ms.
+    Four shards on one card check correctness; they are no scale-out
     measurement."""
     import torch_kernel_check as DC
     import torch_outcome_check as OCk
@@ -5931,7 +6029,9 @@ def phase_mesh(torch, dev):
     mc = clock.ManualClock(1_700_000_000_000)
     prev = clock.set_clock(mc)
     out = {"shards": MESH_SHARDS}
+    log_launches = LaunchLog(K)
     try:
+        log_launches.start()
         flows, degrade, params = flow_rules()
         # loaded namespace by namespace, the order a restore reloads them
         # in, so that a restored standby seats every flow in the same slot
@@ -5946,15 +6046,20 @@ def phase_mesh(torch, dev):
         rng = np.random.default_rng(171)
         param_fids = [r.flow_id for r in params]
         advances = itertools.cycle(ADVANCES_MS)
-        frames = launches = 0
+        frames = launches = owned = empty_frames = 0
         counted = {"mesh": 0, "ref": 0}
+        rows_covered = {"mesh": 0, "ref": 0}
+        rank_of = {p.data_ptr(): r for r, p in enumerate(
+            svc._mesh_state.sharded.flow.counts.parts)}
 
         def frames_of(n):
             return -(-n // SIZES[-1])
 
         def step_both(ids, acq=None):
-            nonlocal frames
+            nonlocal frames, owned, empty_frames
+            want_launches = owned_launches(svc, ids, SIZES[-1], MESH_SHARDS)
             before = K.LAUNCHES["decide_rows"]
+            log_launches.take()
             torch.cuda.set_sync_debug_mode("error")
             try:
                 mat = svc.dispatch_batch_arrays(ids, acq)
@@ -5962,9 +6067,20 @@ def phase_mesh(torch, dev):
                 torch.cuda.set_sync_debug_mode(0)
             got = mat()
             counted["mesh"] += K.LAUNCHES["decide_rows"] - before
+            seen = sorted((rank_of[ptr], rows)
+                          for ptr, rows in log_launches.take())
+            if seen != want_launches:
+                raise AssertionError(
+                    f"mesh: the shards' decide launches covered {seen} "
+                    f"(shard, rows) at n={len(ids)}, their own rows are "
+                    f"{want_launches}")
+            owned += len(want_launches)
+            empty_frames += sum(rows == 0 for _, rows in want_launches)
+            rows_covered["mesh"] += sum(rows for _, rows in seen)
             before = K.LAUNCHES["decide_rows"]
             want = ref.request_batch_arrays(ids, acq)
             counted["ref"] += K.LAUNCHES["decide_rows"] - before
+            rows_covered["ref"] += sum(rows for _, rows in log_launches.take())
             frames += frames_of(len(ids))
             if not OCk.verdicts_equal([got, want]):
                 raise AssertionError(
@@ -6002,13 +6118,48 @@ def phase_mesh(torch, dev):
                 if (a.status, a.remaining) != (b.status, b.remaining):
                     raise AssertionError("mesh: a param answer differs")
                 mc.advance(int(rng.integers(0, 3)))
+        # --- a frame with no row of one shard, at a new bucket ---------------
+        mc.advance(svc.config.bucket_ms)
+        f_local = F // MESH_SHARDS
+        ids = zipf(rng, 4 * SIZES[1])
+        slots = mesh_slots(svc, ids)
+        ids = ids[(slots < 0) | (slots // f_local != MESH_EMPTY_SHARD)][
+            :SIZES[1]]
+        log_launches.capture = True
+        try:
+            step_both(ids)
+        finally:
+            log_launches.capture = False
+        captured = [args for ptr, args in log_launches.captured
+                    if rank_of.get(ptr) == MESH_EMPTY_SHARD]
+        log_launches.captured = []
+        if len(captured) != 1:
+            raise AssertionError(f"mesh: {len(captured)} launches of the "
+                                 f"empty shard {MESH_EMPTY_SHARD}")
+        args = captured[0]
+        sc = K._scalars(args[0], args[5])
+        if int(args[3][sc["idx_cur"]]) == sc["cur_start"]:
+            raise AssertionError("mesh: the empty shard's frame did not "
+                                 "open a new bucket")
+        empty = replay_launch(torch, K, args)
+        if empty["rows"] != 0:
+            raise AssertionError(f"mesh: the empty shard's launch covered "
+                                 f"{empty['rows']} rows")
+        mc.advance(next(advances))
+        log(f"mesh 17a: a frame of {len(ids)} rows with none of shard "
+            f"{MESH_EMPTY_SHARD}, at a new bucket: its launch rolled its "
+            f"window alone, equal to its plain version, "
+            f"{empty['ms']:.4f} ms (CUDA events)")
+
         if cms_launches != per_round * MESH_ROUNDS:
             raise AssertionError(f"mesh: {cms_launches} count-min launches "
                                  f"for {per_round * MESH_ROUNDS} requests")
-        if counted["mesh"] != MESH_SHARDS * frames or counted["ref"] != frames:
+        if (counted["mesh"] != owned or owned != MESH_SHARDS * frames
+                or counted["ref"] != frames):
             raise AssertionError(
-                f"mesh: {counted['mesh']} decide launches on the mesh and "
-                f"{counted['ref']} without it for {frames} frames")
+                f"mesh: {counted['mesh']} decide launches on the mesh for "
+                f"{owned} shard-frames, and {counted['ref']} without it for "
+                f"{frames} frames")
         launches = counted["mesh"]
         a = interop.state_to_numpy(svc._state)
         b = interop.state_to_numpy(ref._state)
@@ -6023,6 +6174,10 @@ def phase_mesh(torch, dev):
             raise AssertionError("mesh: breaker stats differ")
         opened = int((a["breaker.state"] != 0).sum())
         out["lockstep"] = dict(frames=frames, decide_launches=launches,
+                               shard_frames=owned,
+                               empty_shard_frames=empty_frames,
+                               empty_shard_launch=empty,
+                               rows_covered=rows_covered,
                                twin_launches=counted["ref"],
                                reported=reported,
                                param_requests=per_round * MESH_ROUNDS,
@@ -6032,8 +6187,11 @@ def phase_mesh(torch, dev):
             f"({reported} rows) and {per_round * MESH_ROUNDS} param "
             f"requests on {MESH_SHARDS} shards equal to the service with no "
             f"mesh in every verdict and state leaf; {launches} decide "
-            f"launches for {frames} frames ({MESH_SHARDS} a frame), each "
-            f"dispatch sync-free")
+            f"launches for {frames} frames, one a shard on its own rows "
+            f"({empty_frames} on none), covering {rows_covered['mesh']} rows "
+            f"(with no mesh {counted['ref']} launches covering "
+            f"{rows_covered['ref']}, padding included), each dispatch "
+            f"sync-free")
         del ref
 
         # --- 17b: the snapshot onto a 2-shard and an unsharded standby ----
@@ -6124,23 +6282,55 @@ def phase_mesh(torch, dev):
             f"{out['pull_ms']['no_mesh']['p50']:.3f} ms with no mesh "
             f"(host clock; four shards on one card check correctness, "
             f"they are no scale-out measurement)")
+
+        # --- each shard's launch of one such pull, beside no mesh ---------
+        ids = zipf(rng, n)
+        log_launches.capture = True
+        try:
+            for s in (svc, plain):
+                s.request_batch_arrays(ids)
+        finally:
+            log_launches.capture = False
+        captured = log_launches.captured
+        log_launches.captured = []
+        by_shard = {}
+        for ptr, args in captured:
+            key = (f"shard_{rank_of[ptr]}" if ptr in rank_of else "no_mesh")
+            if key in by_shard:
+                raise AssertionError(f"mesh: two decide launches of {key} "
+                                     f"in one {n}-row pull")
+            by_shard[key] = replay_launch(torch, K, args)
+        if "no_mesh" not in by_shard or len(by_shard) < 2:
+            raise AssertionError(f"mesh: captured launches {sorted(by_shard)}")
+        out["launch_of_pull"] = by_shard
+        log(f"mesh: a {n}-row pull's decide launches, each equal to its "
+            f"plain version: " + ", ".join(
+                f"{k} {v['rows']} rows {v['ms']:.4f} ms"
+                for k, v in sorted(by_shard.items()) if k != "no_mesh")
+            + f"; with no mesh {by_shard['no_mesh']['rows']} rows "
+            f"{by_shard['no_mesh']['ms']:.4f} ms (CUDA events, "
+            f"{MESH_LAUNCH_REPS} launches each)")
     finally:
+        log_launches.stop()
         clock.set_clock(prev)
 
     def profiled():
         """Left to the end of the run (see ``phase_service``): the device
         time of a 16384-row pull on the mesh and each shard's share of the
-        decide kernel's launches."""
+        decide kernel's launches, beside the same pull through the restored
+        service with no mesh (the same rules, breakers included)."""
         before = clock.set_clock(mc)
         try:
             got = pull_device_time(torch, svc, mc, zipf, rng, SIZES[-1])
+            got["no_mesh"] = pull_device_time(torch, plain, mc, zipf, rng,
+                                              SIZES[-1])
         finally:
             clock.set_clock(before)
         got["decide_kernel_ms_a_shard"] = (
             got["decide_kernel_ms_a_pull"] / MESH_SHARDS)
         log(f"mesh: the decide kernel's launches take "
-            f"{got['decide_kernel_ms_a_shard']:.4f} ms a shard a "
-            f"{SIZES[-1]}-row pull")
+            f"{got['decide_kernel_ms_a_shard']:.4f} ms a shard on average "
+            f"a {SIZES[-1]}-row pull")
         return got
 
     out["phase_s"] = time.perf_counter() - t_phase

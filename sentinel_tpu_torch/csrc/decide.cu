@@ -56,6 +56,9 @@
 //   live acquires) as per-block partial maxima that every decide block
 //   reduces. Launch 2 never reads `fstarts`; one thread records the new
 //   start. No atomics, no memset.
+// - A step with no rows (a mesh shard that owns none of a frame) still
+//   rolls: launch 1 alone, over the F x E column as always, then one thread
+//   (start_kernel) records the new start. No grid over rows is launched.
 //
 // Parity with the reference (bitwise):
 // - Built with --fmad=false and without --use_fast_math: no a*b+c is
@@ -322,6 +325,12 @@ __global__ void __launch_bounds__(ROLL_THREADS)
     const int e = (int)(i - f * E);
     flow[(f * B + idx_cur) * E + e] = 0;
   }
+}
+
+// A step with no rows: what launch 2's first thread does besides its rows,
+// recording the new window start once launch 1 has read the old one.
+__global__ void start_kernel(int32_t* fstarts, int idx_cur, int cur_start) {
+  fstarts[idx_cur] = cur_start;
 }
 
 // The first segment head in [start, end) (N when there is none), found by
@@ -677,22 +686,27 @@ extern "C" int sentinel_decide_rows(
     uint8_t* pace_acc, int32_t* pace_wait, float* passed, float* thr,
     float* admp, float* wtok_new, uint8_t* do_sync, int32_t* lpt_sched,
     int32_t* work, int32_t* scratch, int blocks, int chunk, void* stream) {
-  if (F < 1 || B < 1 || B > MAX_B || N < 1 || refine_iters < 0 ||
-      blocks < 1 ||
-      chunk < 1 || (long long)blocks * chunk < N)
+  if (F < 1 || B < 1 || B > MAX_B || N < 0 || refine_iters < 0 ||
+      (N > 0 && (blocks < 1 || chunk < 1 || (long long)blocks * chunk < N)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const long long total = F * E;
   long long roll_blocks = (total + ROLL_THREADS - 1) / ROLL_THREADS;
   if (roll_blocks > 132 * 16) roll_blocks = 132 * 16;
   if (roll_blocks < 1) roll_blocks = 1;
-  const int parts =
-      uniform ? (int)(roll_blocks < MAX_PARTS ? roll_blocks : MAX_PARTS) : 0;
+  const int parts = uniform && N > 0
+                        ? (int)(roll_blocks < MAX_PARTS ? roll_blocks
+                                                        : MAX_PARTS)
+                        : 0;
   roll_kernel<<<(unsigned)roll_blocks, ROLL_THREADS, 0, st>>>(
       flow, fstarts, ostarts, F, B, idx_cur, cur_start, now, interval_ms,
       horizon, N, acquire, live, parts, scratch);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
+  if (N == 0) {
+    start_kernel<<<1, 1, 0, st>>>(fstarts, idx_cur, cur_start);
+    return (int)cudaGetLastError();
+  }
 
   Params p;
   p.flow = flow;

@@ -24,10 +24,11 @@ Port notes:
   coincide with what the unconditional compute yields, so results stay
   bit-identical, and the step never waits on the device.
 - Mesh sharding: the reference's ``axis_name`` becomes ``axis``, a
-  :class:`ShardAxis` (the shard's rank, the mesh size, and its ``psum`` and
-  ``pmax``). ``parallel/sharding.py`` runs this core once per shard with
-  it; ``axis=None`` is the single-shard step, where every hook is the
-  identity.
+  :class:`ShardAxis` (the shard's rank, the mesh size, its ``psum`` and
+  ``pmax``, and where its rows stand in the batch).
+  ``parallel/sharding.py`` runs this core once per shard, on the rows whose
+  flow the shard owns and no others; ``axis=None`` is the single-shard
+  step, where every hook is the identity.
 """
 
 from __future__ import annotations
@@ -91,12 +92,20 @@ class ShardAxis(NamedTuple):
     """One shard's view of the flow mesh axis (the reference's
     ``axis_index`` / ``psum`` / ``pmax`` over ``axis_name``). ``psum`` and
     ``pmax`` take this shard's tensor and return the reduction over every
-    shard, on this shard's device."""
+    shard, on this shard's device.
+
+    Under an axis the core is given only the rows whose flow this shard
+    owns, in batch order. The owned rows of the whole batch fall into
+    ``n_runs`` runs, maximal stretches of one owner; ``runs`` (int64, on
+    the shard's device) numbers the run of each of this shard's rows. The
+    namespace guard counts the other shards' earlier rows by run."""
 
     rank: int
     size: int
     psum: Callable[[torch.Tensor], torch.Tensor]
     pmax: Callable[[torch.Tensor], torch.Tensor]
+    runs: Optional[torch.Tensor] = None
+    n_runs: int = 0
 
 
 def _identity(x):
@@ -106,8 +115,8 @@ def _identity(x):
 def shard_slots(flow_slot: torch.Tensor, f_local: int,
                 axis: Optional[ShardAxis]):
     """``(in_range, safe_slot)`` of global slots for the shard that owns
-    rows ``[rank * f_local, (rank + 1) * f_local)``; rows of another shard,
-    of no rule and of padding are out of range and read local row 0."""
+    rows ``[rank * f_local, (rank + 1) * f_local)``; rows of no rule and of
+    padding are out of range and read local row 0."""
     if axis is None:
         in_range = (flow_slot >= 0) & (flow_slot < f_local)
         return in_range, torch.where(in_range, flow_slot, 0)
@@ -116,13 +125,12 @@ def shard_slots(flow_slot: torch.Tensor, f_local: int,
     return in_range, torch.where(in_range, local, 0)
 
 
-def rule_presence(batch, owned: torch.Tensor, axis: Optional[ShardAxis]):
-    """``(live, no_rule)``: valid rows whose flow has a rule on SOME shard
-    (the reference's psum of ownership), and valid rows with none."""
-    has_rule = owned if axis is None else (
-        axis.psum(owned.to(torch.int32)) > 0
-    )
-    return batch.valid & has_rule, batch.valid & ~has_rule
+def rule_presence(batch, owned: torch.Tensor):
+    """``(live, no_rule)``: valid rows whose flow has a rule, and valid rows
+    with none. On a mesh the one shard whose range holds a row's slot is the
+    only one that can own it, so its own answer is the reference's psum of
+    ownership."""
+    return batch.valid & owned, batch.valid & ~owned
 
 
 def make_batch(
@@ -293,27 +301,51 @@ def _occupy_feasible(
 
 
 def _ns_guard(config, spec, ns_state, rules, now, owned, safe_slot, live,
-              psum=_identity):
+              axis: Optional[ShardAxis] = None):
     """Namespace guard (request-count qps, ``GlobalRequestLimiter``).
 
     Returns ``(ns_id, ns_ok, seg_ns_sum)``. The reference picks the precise
     arm (an ``[N, NS]`` one-hot cumsum) behind a ``lax.cond`` on "some
     namespace crosses its budget inside this batch"; here both arms run and
-    the same predicate selects. On a mesh ``psum`` gives every shard the
-    owner's namespace id, so the replicated namespace window is updated
-    identically everywhere."""
+    the same predicate selects.
+
+    On a mesh (``axis``) the shard has only its own rows. Each shard counts
+    its live rows by run and namespace, one psum gives every shard those
+    ``[n_runs, NS]`` counts, and a row's precise prefix is its own shard's
+    earlier rows plus the other shards' rows of earlier runs: the
+    reference's batch-wide prefix, whose terms are whole numbers, so the
+    sums agree bitwise. ``seg_ns_sum`` then sums over every shard (a psum),
+    so the replicated namespace window is updated identically everywhere."""
     slot = safe_slot.to(torch.int64)
-    ns_id = psum(torch.where(owned, rules.namespace_id[slot], 0)).to(
-        torch.int64
-    )
+    ns_id = torch.where(owned, rules.namespace_id[slot], 0).to(torch.int64)
     live_f = live.to(torch.float32)
     NS = config.max_namespaces
+    psum = _identity if axis is None else axis.psum
 
     def seg_ns_sum(vals):
         out = torch.zeros((NS,), dtype=torch.float32, device=vals.device)
-        return out.index_add_(0, ns_id, vals.to(torch.float32))
+        return psum(out.index_add_(0, ns_id, vals.to(torch.float32)))
 
-    ns_live_tot = seg_ns_sum(live_f)
+    # the reference's [N, NS] one-hot cumsum over the batch axis, laid out
+    # [NS, N] so the scan runs along the contiguous axis (a batch-axis scan
+    # of [16384, 64] is a slow outer-dimension scan on the GPU)
+    one_hot_t = (
+        torch.arange(NS, device=slot.device)[:, None] == ns_id[None, :]
+    ).to(torch.float32)
+    ns_incl = torch.cumsum(one_hot_t * live_f[None, :], dim=1)
+    ns_prefix = torch.gather(ns_incl, 0, ns_id[None, :])[0] - live_f
+    if axis is None:
+        ns_live_tot = seg_ns_sum(live_f)
+    else:
+        cell = axis.runs * NS + ns_id
+        mine = torch.zeros((axis.n_runs * NS,), dtype=torch.float32,
+                           device=slot.device).index_add_(0, cell, live_f)
+        every = axis.psum(mine)
+        ns_live_tot = every.view(axis.n_runs, NS).sum(dim=0)
+        others = (every - mine).view(axis.n_runs, NS)
+        before = (torch.cumsum(others, dim=0) - others).view(-1)
+        ns_prefix = ns_prefix + before[cell]
+
     ns_ids_dense = torch.arange(NS, dtype=torch.int32, device=slot.device)
     ns_already_dense = W.window_sum_at(
         spec, ns_state, now, 0, ns_ids_dense
@@ -324,15 +356,6 @@ def _ns_guard(config, spec, ns_state, rules, now, owned, safe_slot, live,
         & (ns_already_dense + ns_live_tot > ns_budget_dense)
         & (ns_already_dense + 1.0 <= ns_budget_dense)
     )
-
-    # the reference's [N, NS] one-hot cumsum over the batch axis, laid out
-    # [NS, N] so the scan runs along the contiguous axis (a batch-axis scan
-    # of [16384, 64] is a slow outer-dimension scan on the GPU)
-    one_hot_t = (
-        torch.arange(NS, device=slot.device)[:, None] == ns_id[None, :]
-    ).to(torch.float32)
-    ns_incl = torch.cumsum(one_hot_t * live_f[None, :], dim=1)
-    ns_prefix = torch.gather(ns_incl, 0, ns_id[None, :])[0] - live_f
     ok_precise = (
         ns_already_dense[ns_id] + ns_prefix + 1.0
     ) <= ns_budget_dense[ns_id]
@@ -359,10 +382,11 @@ def _decide_core(
     ``uniform``: all live requests acquire the same count, so greedy
     admission has a one-pass closed form.
     ``axis``: this shard of a flow mesh. The shard owns the flow rows of
-    ``state`` and ``rules`` (global slots ``rank * f_local`` on), evaluates
-    the rows whose flow it owns, and the psums stitch the global picture:
-    rule ownership, namespace ids and the verdicts; a pmax keeps the
-    replicated occupy ``starts`` equal on every shard.
+    ``state`` and ``rules`` (global slots ``rank * f_local`` on), and
+    ``batch`` holds only the rows whose flow it owns (possibly none). Its
+    verdicts are those rows' verdicts; the psums give the namespace guard
+    the other shards' rows, and a pmax keeps the replicated occupy
+    ``starts`` equal on every shard.
     """
     spec = flow_spec(config)
     now = int(now)
@@ -370,17 +394,16 @@ def _decide_core(
     batch = batch_to(batch, dev)
     N = batch.valid.shape[0]
     f_local = rules.valid.shape[0]
-    psum = _identity if axis is None else axis.psum
 
     in_range, safe_slot = shard_slots(batch.flow_slot, f_local, axis)
     slot = safe_slot.to(torch.int64)
     owned = in_range & rules.valid[slot]
-    live, no_rule = rule_presence(batch, owned, axis)
+    live, no_rule = rule_presence(batch, owned)
 
     acquire_f = batch.acquire.to(torch.float32)
 
     ns_id, ns_ok, seg_ns_sum = _ns_guard(
-        config, spec, state.ns, rules, now, owned, safe_slot, live, psum
+        config, spec, state.ns, rules, now, owned, safe_slot, live, axis
     )
     too_many = live & ~ns_ok
     ns_admitted = live & ns_ok
@@ -440,7 +463,7 @@ def _decide_core(
 
     # 3. prefix-sum admission (odd refinement count ⇒ ⊆ sequential-exact)
     if uniform:
-        a = torch.max(torch.where(live, batch.acquire, 0)).to(torch.float32)
+        a = uniform_acquire(live, batch.acquire)
         a_safe = torch.clamp_min(a, 1.0)
         rank = flow_prefix(active_window.to(torch.float32))
         admit = active_window & (passed + rank * a + a <= threshold)
@@ -559,20 +582,31 @@ def _decide_core(
     verdicts = _verdicts(
         batch, no_rule, too_many, degraded, admit, pace_now, can_occupy,
         pace_later, hard_block, pace_reject, wait_next, pace_wait,
-        threshold, passed, admitted_prefix, acquire_f, br_retry, psum,
+        threshold, passed, admitted_prefix, acquire_f, br_retry,
     )
     return state._replace(breaker=breaker_ws), verdicts
+
+
+def uniform_acquire(live: torch.Tensor, acquire: torch.Tensor):
+    """The uniform form's ``a``: the largest live acquire, as float32 (0
+    for no rows). On a mesh each shard takes it over its own rows; under
+    the uniform contract every live row acquires the same count, so a shard
+    with a live row finds the batch's value, and one without admits
+    nothing whatever ``a`` is."""
+    if acquire.shape[0] == 0:
+        return torch.zeros((), dtype=torch.float32, device=acquire.device)
+    return torch.max(torch.where(live, acquire, 0)).to(torch.float32)
 
 
 def _verdicts(
     batch, no_rule, too_many, degraded, admit, pace_now, can_occupy,
     pace_later, hard_block, pace_reject, wait_next, pace_wait, threshold,
-    passed, admitted_prefix, acquire_f, br_retry, psum=_identity,
+    passed, admitted_prefix, acquire_f, br_retry,
 ) -> VerdictBatch:
-    """Verdict stitching, shared by both decide backends: the owner of a
-    row's flow emits ``status + 1``, its wait and its remaining, the other
-    shards zeros, and ``psum`` adds them up."""
-    local_status = torch.where(
+    """The verdicts of the step's rows, shared by both decide backends. A
+    shard of a mesh answers only for its own rows; the rows no shard owns
+    are answered by ``parallel/sharding.py``."""
+    status_code = torch.where(
         degraded,
         int(TokenStatus.DEGRADED) + 1,
         torch.where(
@@ -587,7 +621,6 @@ def _verdicts(
             ),
         ),
     ).to(torch.int32)
-    combined = psum(local_status)
     status = torch.where(
         ~batch.valid,
         int(TokenStatus.FAIL),
@@ -597,14 +630,14 @@ def _verdicts(
             torch.where(
                 too_many,
                 int(TokenStatus.TOO_MANY_REQUEST),
-                torch.where(combined > 0, combined - 1,
+                torch.where(status_code > 0, status_code - 1,
                             int(TokenStatus.FAIL)),
             ),
         ),
     ).to(torch.int8)
-    wait_ms = psum(torch.where(
+    wait_ms = torch.where(
         can_occupy, wait_next, torch.where(pace_later, pace_wait, 0)
-    ).to(torch.int32))
+    ).to(torch.int32)
     remaining_local = torch.clamp(
         threshold - passed - admitted_prefix
         - torch.where(admit, acquire_f, 0.0),
@@ -613,9 +646,9 @@ def _verdicts(
     ).to(torch.int32)
     # blocked and paced verdicts carry remaining=0; DEGRADED carries
     # retry-after-ms
-    remaining = psum(torch.where(
+    remaining = torch.where(
         admit, remaining_local, torch.where(degraded, br_retry, 0)
-    ).to(torch.int32))
+    ).to(torch.int32)
     return VerdictBatch(status=status, wait_ms=wait_ms, remaining=remaining)
 
 

@@ -147,6 +147,7 @@ def decide_rows_plain(
     from sentinel_tpu_torch.engine.decide import (
         _occupy_feasible,
         _warmup_curve,
+        uniform_acquire,
     )
 
     fstarts_old = fstarts.clone()
@@ -204,7 +205,7 @@ def decide_rows_plain(
     flow_prefix = _grouped_prefix(slot)
 
     if uniform:
-        a = torch.max(torch.where(live, acquire, 0)).to(torch.float32)
+        a = uniform_acquire(live, acquire)
         a_safe = torch.clamp_min(a, 1.0)
         rank = flow_prefix(active_window.to(torch.float32))
         admit = active_window & (passed + rank * a + a <= threshold)
@@ -343,7 +344,10 @@ def decide_rows(
     uniform: bool,
 ) -> DecideRows:
     """The kernel's wrapper: ``flow_counts`` and ``fstarts`` are updated in
-    place; returns the ``[N]`` decision columns.
+    place; returns the ``[N]`` decision columns. ``N`` may be 0 (a mesh
+    shard that owns no row of the frame): the flow window still rolls, and
+    only the kernel's first launch (the roll, a grid over the ``F x E``
+    column) and the one-thread record of the new start run.
 
     CPU tensors run :func:`decide_rows_plain`. CUDA tensors launch the
     kernel (after checking device, dtype, shape and contiguity) or raise.
@@ -359,8 +363,6 @@ def decide_rows(
     N = cols["safe_slot"].shape[0]
     if E != N_CLUSTER_EVENTS or B != config.n_buckets or B > MAX_BUCKETS:
         raise ValueError(f"decide_rows: flow plane shape {(F, B, E)}")
-    if N < 1:
-        raise ValueError("decide_rows: empty batch")
     _check("flow_counts", flow_counts, torch.int32, (F, B, E), device)
     _check("occ_counts", occ_counts, torch.int32, (F, B, 1), device)
     _check("fstarts", fstarts, torch.int32, (B,), device)
@@ -420,9 +422,9 @@ def decide_core_kernel(
     same outputs, bitwise-equal results, state updated in place. Requires
     the grouped-batch contract; non-grouped calls take the torch-ops
     pipeline. Under a flow mesh (``axis``, an ``engine.decide.ShardAxis``)
-    the prologue and epilogue take the same hooks as ``_decide_core``; the
-    launch is unchanged, and rows of another shard's flows are out-of-range
-    rows for it."""
+    ``batch`` holds only the shard's own rows, as for ``_decide_core``, and
+    the prologue and epilogue take the same hooks; the launch covers those
+    rows alone (none: the launch only rolls the shard's flow window)."""
     import importlib
 
     D = importlib.import_module("sentinel_tpu_torch.engine.decide")
@@ -439,17 +441,15 @@ def decide_core_kernel(
     N = batch.valid.shape[0]
     f_local = rules.valid.shape[0]
 
-    psum = D._identity if axis is None else axis.psum
-
     # ---- prologue: [N]-sized setup, namespace guard, breakers ------------
     in_range, safe_slot = D.shard_slots(batch.flow_slot, f_local, axis)
     slot = safe_slot.to(torch.int64)
     owned = in_range & rules.valid[slot]
-    live, no_rule = D.rule_presence(batch, owned, axis)
+    live, no_rule = D.rule_presence(batch, owned)
     acquire_f = batch.acquire.to(torch.float32)
 
     ns_id, ns_ok, seg_ns_sum = D._ns_guard(
-        config, spec, state.ns, rules, now, owned, safe_slot, live, psum
+        config, spec, state.ns, rules, now, owned, safe_slot, live, axis
     )
     too_many = live & ~ns_ok
     ns_admitted = live & ns_ok
@@ -536,6 +536,6 @@ def decide_core_kernel(
         batch, no_rule, too_many, degraded, admit, pace_now, can_occupy,
         pace_later, hard_block, pace_reject, wait_next, pace_wait,
         rows.threshold, rows.passed, rows.admitted_prefix, acquire_f,
-        br_retry, psum,
+        br_retry,
     )
     return state._replace(breaker=breaker_ws), verdicts

@@ -5,9 +5,13 @@ The mesh has one axis, ``"flows"``. The per-flow leaves of the state and of
 the rule table are cut along it: shard ``s`` owns the ``max_flows / S``
 consecutive flow rows from ``s * max_flows / S``, on ``devices[s]``. The
 leaves the reference replicates (the window ``starts``, the namespace window,
-``ns_max_qps`` and ``ns_connected``) are copied to every shard. Every shard
-sees the whole batch, evaluates the rows whose flow it owns, and the psums
-stitch the verdicts (``engine/decide.py``, ``axis``).
+``ns_max_qps`` and ``ns_connected``) are copied to every shard. The host
+splits each batch by owner (:func:`split_rows`): a shard steps only the rows
+whose flow it owns, a psum gives each the namespace counts of the others'
+rows (``engine/decide.py``, ``axis``), and each writes its verdicts into the
+batch's positions of its rows. The reference's devices each see the whole
+batch and mask the rows they do not own; the verdicts and the state are the
+same.
 
 The reference's mesh is one process driving every shard (``shard_map`` over
 ``jax.devices()``); here it is one thread per shard in one process, each
@@ -31,7 +35,7 @@ from __future__ import annotations
 import contextlib
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Callable, List, Optional, Sequence
+from typing import Callable, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -42,8 +46,10 @@ from sentinel_tpu_torch.engine.decide import (
     RequestBatch,
     ShardAxis,
     VerdictBatch,
+    TokenStatus,
     _core_for,
     batch_to,
+    host_to_device,
 )
 from sentinel_tpu_torch.engine.rules import RuleTable
 from sentinel_tpu_torch.engine.state import (
@@ -421,6 +427,56 @@ def _write_back(sharded: EngineState, rank: int, local: EngineState) -> None:
     _map_state(put, sharded, local)
 
 
+class RowSplit(NamedTuple):
+    """Which rows of one frame each shard steps (:func:`split_rows`): shard
+    ``s`` takes ``rows[cuts[s]:cuts[s + 1]]`` and the same stretch of
+    ``runs``."""
+
+    rows: np.ndarray  # int64 positions of the owned rows, grouped by shard
+    runs: np.ndarray  # int64 run number of each of those rows
+    cuts: np.ndarray  # int64 [size + 1]: where each shard's stretch starts
+    n_runs: int  # runs of one owner among the frame's owned rows
+
+
+def split_rows(slots, f_local: int, size: int) -> RowSplit:
+    """Split one frame by owner: shard ``s`` gets the positions of the rows
+    whose slot lies in ``[s * f_local, (s + 1) * f_local)``, in batch order;
+    no shard gets a row of slot -1 (padding, no rule) or beyond. The owned
+    rows fall into runs, maximal stretches of one owner (one a non-empty
+    shard when the batch is sorted by slot); each shard's rows carry their
+    run numbers for the namespace guard."""
+    slots = np.asarray(slots, dtype=np.int64)
+    owner = np.where((slots >= 0) & (slots < f_local * size),
+                     slots // f_local, -1)
+    pos = np.flatnonzero(owner >= 0)
+    own = owner[pos]
+    head = np.ones(own.shape[0], dtype=bool)
+    head[1:] = own[1:] != own[:-1]
+    run = np.cumsum(head) - 1
+    order = np.argsort(own, kind="stable")
+    cuts = np.searchsorted(own[order], np.arange(size + 1))
+    return RowSplit(pos[order], run[order], cuts.astype(np.int64),
+                    int(head.sum()))
+
+
+def _host_slots(flow_slot) -> np.ndarray:
+    if isinstance(flow_slot, torch.Tensor):
+        return flow_slot.cpu().numpy()
+    return np.asarray(flow_slot)
+
+
+def _take(frame: RequestBatch, idx: torch.Tensor) -> RequestBatch:
+    """The leaves of ``frame`` at positions ``idx`` (on its device)."""
+    return RequestBatch(*(leaf.index_select(0, idx) for leaf in frame))
+
+
+def _put(out: VerdictBatch, idx: torch.Tensor, v: VerdictBatch) -> None:
+    """Write a shard's verdicts into the batch's verdicts at ``idx`` (on the
+    verdicts' device)."""
+    for dst, src in zip(out, v):
+        dst.index_copy_(0, idx, src.to(dst.device))
+
+
 def make_sharded_decide(
     config: EngineConfig,
     mesh: FlowMesh,
@@ -434,52 +490,76 @@ def make_sharded_decide(
     over a state from :func:`shard_state` and a table from
     :func:`shard_rules`.
 
-    ``config.max_flows`` must divide evenly by the mesh size. Each shard
-    runs the single-shard core (the CUDA kernel's under ``grouped`` on a
-    card, as ``engine.decide._core_for`` picks) on its own rows with a
-    :class:`ShardAxis`; every shard ends with the same verdicts, and shard
-    0's are returned.
+    ``config.max_flows`` must divide evenly by the mesh size. The host
+    splits each frame by owner (:func:`split_rows`; the batch's slots are
+    read on the host). Each shard runs the single-shard core (the CUDA
+    kernel's under ``grouped`` on a card, as ``engine.decide._core_for``
+    picks) on its own rows with a :class:`ShardAxis`, and writes their
+    verdicts into the batch's verdicts on ``mesh[0]``; a row no shard owns
+    answers FAIL (padding) or NO_RULE_EXISTS, as in the reference. A shard
+    with no rows in a frame decides none, but meets the others at every
+    collective and rolls its windows.
 
     ``donate=True`` updates the state in place (the port of the reference's
     buffer donation); otherwise the state is copied first and the input
     stays as it was. ``depth=F`` takes ``[F, batch_size]`` stacked frames
-    and runs F sharded steps at one ``now``, each frame's verdicts stitched
-    before the next frame decides; verdicts come back ``[F, batch_size]``.
-    ``axis`` is taken for the reference's signature: the mesh names its
-    own axis.
+    and runs F sharded steps at one ``now``, each frame on the state the
+    one before left; verdicts come back ``[F, batch_size]``. ``axis`` is
+    taken for the reference's signature: the mesh names its own axis.
     """
     _check_even(config.max_flows, mesh)
     if depth is not None and depth < 2:
         raise ValueError(f"fused depth must be >= 2, got {depth}")
     devs = mesh.devices
+    f_local = config.max_flows // mesh.size
 
     def sharded_step(state, rules, batch, now):
         if not donate:
             state = clone_sharded_state(state)
         now = int(now)
+        slots = _host_slots(batch.flow_slot)
+        splits = [split_rows(frame, f_local, mesh.size)
+                  for frame in (slots[None] if depth is None else slots)]
         on_dev = {str(d): batch_to(batch, d) for d in devs}
+        # every frame's rows and runs, on each device in one copy; a shard
+        # takes its stretches (views)
+        packed = np.concatenate([np.concatenate([sp.rows, sp.runs])
+                                 for sp in splits])
+        idx_on = {str(d): host_to_device(packed, d) for d in devs}
+        base = np.cumsum([0] + [2 * sp.rows.shape[0] for sp in splits])
+        valid = on_dev[str(devs[0])].valid
+        out = VerdictBatch(
+            status=torch.where(valid, int(TokenStatus.NO_RULE_EXISTS),
+                               int(TokenStatus.FAIL)).to(torch.int8),
+            wait_ms=torch.zeros(valid.shape, dtype=torch.int32,
+                                device=valid.device),
+            remaining=torch.zeros(valid.shape, dtype=torch.int32,
+                                  device=valid.device),
+        )
 
         def shard(rank: int, ax: ShardAxis):
-            core = _core_for(config, grouped, devs[rank])
+            dev = devs[rank]
+            core = _core_for(config, grouped, dev)
             st = _local(_map_state, state, rank)
             rl = _local(_map_rules, rules, rank)
-            b = on_dev[str(devs[rank])]
-            if depth is None:
-                st, v = core(config, st, rl, b, now, grouped=grouped,
-                             uniform=uniform, axis=ax)
-            else:
-                outs = []
-                for k in range(depth):
-                    frame = RequestBatch(*(leaf[k] for leaf in b))
-                    st, vk = core(config, st, rl, frame, now,
-                                  grouped=grouped, uniform=uniform, axis=ax)
-                    outs.append(vk)
-                v = VerdictBatch(*(torch.stack(leaves)
-                                   for leaves in zip(*outs)))
+            b = on_dev[str(dev)]
+            idx, lead_idx = idx_on[str(dev)], idx_on[str(devs[0])]
+            for k, split in enumerate(splits):
+                frame = b if depth is None else RequestBatch(
+                    *(leaf[k] for leaf in b))
+                n = split.rows.shape[0]
+                lo = int(base[k] + split.cuts[rank])
+                hi = int(base[k] + split.cuts[rank + 1])
+                st, v = core(config, st, rl, _take(frame, idx[lo:hi]), now,
+                             grouped=grouped, uniform=uniform,
+                             axis=ax._replace(runs=idx[lo + n:hi + n],
+                                              n_runs=split.n_runs))
+                _put(out if depth is None else VerdictBatch(
+                    *(leaf[k] for leaf in out)), lead_idx[lo:hi], v)
             _write_back(state, rank, st)
-            return v
 
-        return state, mesh.run(shard)[0]
+        mesh.run(shard)
+        return state, out
 
     return sharded_step
 

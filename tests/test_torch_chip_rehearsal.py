@@ -160,14 +160,26 @@ def test_phase_mesh_rehearses_on_the_cpu(smoke, monkeypatch):
             MESH_TIMED=2).items():
         monkeypatch.setattr(smoke, name, value)
     monkeypatch.setattr(smoke, "gpu_identity", lambda: "cpu")
+    monkeypatch.setattr(smoke, "cuda_ms", lambda fn, reps, torch: 0.0)
     out, _profiled = smoke.phase_mesh(torch, "cpu")
     lock = out["lockstep"]
-    assert lock["frames"] == 2 * (3 + 4)
-    assert lock["decide_launches"] == 4 * lock["frames"]
+    # one launch a shard a frame, on the rows the shard owns; the last
+    # frame (SIZES[1] rows) leaves one shard without a row
+    assert lock["frames"] == 2 * (3 + 4) + 1
+    assert lock["decide_launches"] == lock["shard_frames"] == 4 * lock[
+        "frames"]
+    assert lock["empty_shard_frames"] >= 1
+    assert lock["empty_shard_launch"]["rows"] == 0
+    assert lock["rows_covered"]["mesh"] == 2 * (64 + 256 + 1024 + 4096) + (
+        smoke.SIZES[1])
     assert lock["twin_launches"] == lock["frames"]
     assert lock["reported"] > 0 and lock["breakers_not_closed"] > 0
     assert out["door"]["verdicts"] == 2 * (64 + 256 + 1024)
     assert out["pull_ms"]["mesh"]["n"] == 2
+    launches = out["launch_of_pull"]
+    assert launches["no_mesh"]["rows"] == 1024
+    assert sum(v["rows"] for k, v in launches.items()
+               if k != "no_mesh") == 1024
 
 
 def test_phase_dashboard_rehearses_on_the_cpu(smoke, monkeypatch, tmp_path):

@@ -503,7 +503,7 @@ N_FLOWS = 40
 NOW0 = 20_000
 
 
-def _flow_specs():
+def _flow_specs(n_flows=N_FLOWS):
     rng = np.random.default_rng(0x5A4D)
     return [dict(
         flow_id=100 + i,
@@ -512,7 +512,7 @@ def _flow_specs():
         namespace=f"ns{i % 3}",
         control_behavior=int(rng.choice([0, 0, 0, 1, 2, 3])),
         max_queueing_time_ms=int(rng.integers(100, 600)),
-    ) for i in range(N_FLOWS)]
+    ) for i in range(n_flows)]
 
 
 def _degrade_specs():
@@ -528,8 +528,9 @@ def _degrade_specs():
     ) for i in range(0, N_FLOWS, 3)]
 
 
-def _tables(degrade: bool):
-    flows, degr = _flow_specs(), (_degrade_specs() if degrade else [])
+def _tables(degrade: bool, n_flows=N_FLOWS):
+    flows = _flow_specs(n_flows)
+    degr = _degrade_specs() if degrade else []
     j_table, j_index = j_build(
         JConfig(**PKW),
         [JRule(**{**f, "mode": JTM(f["mode"]),
@@ -699,6 +700,153 @@ def test_port_mesh_matches_jax_mesh(mesh, jax_mesh, grouped, impl, depth,
 
 
 # ---------------------------------------------------------------------------
+# Each shard decides only its own rows
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("slots,rows,runs,n_runs", [
+    # sorted, with unknown flows first and padding last: one run a shard
+    ([-1, -1, 0, 1, 1, 9, 17, 30, -1, -1],
+     [[2, 3, 4], [5], [6], [7]], [[0, 0, 0], [1], [2], [3]], 4),
+    # shard 1 owns no row
+    ([0, 0, 3, 16, 24, 31, -1],
+     [[0, 1, 2], [], [3], [4, 5]], [[0, 0, 0], [], [1], [2, 2]], 3),
+    # interleaved, and a slot beyond the table
+    ([9, 0, 1, 9, 40, 25, 2, 8],
+     [[1, 2, 6], [0, 3, 7], [], [5]], [[1, 1, 4], [0, 2, 5], [], [3]], 6),
+], ids=["sorted", "empty-shard", "interleaved"])
+def test_split_rows_gives_each_shard_its_own_rows(slots, rows, runs, n_runs):
+    split = S.split_rows(np.asarray(slots, np.int32), 8, 4)
+    assert split.n_runs == n_runs
+    assert split.rows.dtype == split.runs.dtype == np.int64
+    for s in range(4):
+        lo, hi = split.cuts[s], split.cuts[s + 1]
+        for got, want in ((split.rows[lo:hi], rows[s]),
+                          (split.runs[lo:hi], runs[s])):
+            np.testing.assert_array_equal(got, np.asarray(want, np.int64),
+                                          err_msg=str(s))
+
+
+N_ALL = PKW["max_flows"]  # a rule in every slot: every shard owns flows
+F_LOCAL = N_ALL // 8
+
+
+def _owned_stream(index, grouped: bool, empty_shard, seed: int):
+    """Three batches over all 64 flows, unknown flows and padding, with
+    acquires and prioritized rows when ungrouped. ``empty_shard`` owns rows
+    of the first batch only; the second comes one window later, into the
+    bucket those rows were counted in, so the empty shard's step must
+    still roll its window."""
+    rng = np.random.default_rng(seed)
+    every = list(range(N_ALL))
+    rest = [f for f in every
+            if index.lookup(100 + f) // F_LOCAL != empty_shard]
+    calls, now = [], NOW0
+    for k in range(3):
+        if k == 1 and empty_shard is not None:
+            now += EngineConfig(**PKW).interval_ms
+        else:
+            now += int(rng.integers(40, 260))
+        flows = every if k == 0 else rest
+        n = int(rng.integers(40, PKW["batch_size"]))
+        pick = rng.integers(0, len(flows) + 2, n)
+        slots = np.asarray([index.lookup(100 + flows[i]) if i < len(flows)
+                            else -1 for i in pick], np.int32)
+        if grouped:
+            calls.append((now, dict(slots=np.sort(slots), acq=None,
+                                    prio=None)))
+        else:
+            calls.append((now, dict(
+                slots=slots, acq=rng.integers(1, 4, n).astype(np.int32),
+                prio=rng.random(n) < 0.2)))
+    return calls
+
+
+def _recorder(monkeypatch, impl, seen):
+    """Record the global slots of every row each shard's decide sees: under
+    the kernel's core through its plain version (one call a launch), else
+    through the core itself."""
+    from sentinel_tpu_torch.ops import decide_cuda as K
+
+    if impl == "pallas":
+        plain = K.decide_rows_plain
+
+        def rows_plain(config, flow_counts, *args, **kwargs):
+            seen.append((flow_counts.data_ptr(), args[4]["safe_slot"]))
+            return plain(config, flow_counts, *args, **kwargs)
+
+        monkeypatch.setattr(K, "decide_rows_plain", rows_plain)
+        return
+    real = S._core_for
+
+    def core_for(config, grouped, device):
+        core = real(config, grouped, device)
+
+        def recording(config, state, rules, batch, now, **kw):
+            local = torch.as_tensor(batch.flow_slot) - kw["axis"].rank * (
+                rules.valid.shape[0])
+            seen.append((state.flow.counts.data_ptr(), local))
+            return core(config, state, rules, batch, now, **kw)
+
+        return recording
+
+    monkeypatch.setattr(S, "_core_for", core_for)
+
+
+@pytest.mark.parametrize("empty_shard", [None, 2],
+                         ids=["every-shard", "shard-2-empty"])
+@pytest.mark.parametrize("grouped,impl", [
+    (False, "xla"), (True, "xla"), (True, "pallas"),
+], ids=["ungrouped", "grouped", "grouped-kernel"])
+def test_each_shard_decides_only_its_own_rows(mesh, jax_mesh, monkeypatch,
+                                               grouped, impl, empty_shard):
+    """With a rule in every slot, each shard's decide sees exactly the
+    batch's rows in its slot range, in batch order (none for a shard that
+    owns no row: under the kernel's core its launch only rolls the
+    window); the verdicts and every state leaf equal the JAX 8-device
+    mesh's."""
+    j_table, _t_table, index = _tables(False, n_flows=N_ALL)
+    calls = _owned_stream(index, grouped, empty_shard, 23)
+    jcfg = JConfig(**PKW)
+    j_step = j_sharded(jcfg, jax_mesh, grouped=grouped, uniform=grouped)
+    j_st = j_shard_state(_jax_state(_initial_state(False)), jax_mesh)
+    j_tb = j_shard_rules(j_table, jax_mesh)
+
+    cfg = EngineConfig(**PKW, decide_impl=impl)
+    step = make_sharded_decide(cfg, mesh, grouped=grouped, uniform=grouped,
+                               donate=True)
+    st = interop.state_from_numpy(_initial_state(False), mesh=mesh)
+    tb = interop.rules_from_numpy(interop.rules_to_numpy(j_tb), mesh=mesh)
+    rank_of = {p.data_ptr(): r for r, p in enumerate(st.flow.counts.parts)}
+    seen = []
+    _recorder(monkeypatch, impl, seen)
+    for k, (now, b) in enumerate(calls):
+        j_st, jv = j_step(j_st, j_tb, _batch(j_make_batch, jcfg, b),
+                          jnp.int32(now))
+        seen.clear()
+        st, v = step(st, tb, _batch(make_batch, cfg, b), now)
+        assert_verdicts_equal(jax.tree.map(np.asarray, jv), v, f"call {k}")
+        got = {}
+        for ptr, local in seen:
+            assert rank_of[ptr] not in got, "two decides on one shard"
+            got[rank_of[ptr]] = local.numpy() + rank_of[ptr] * F_LOCAL
+        slots = b["slots"]
+        assert sorted(got) == list(range(8)), f"call {k}: {sorted(got)}"
+        for r in range(8):
+            want = slots[(slots >= r * F_LOCAL) & (slots < (r + 1) * F_LOCAL)]
+            np.testing.assert_array_equal(got[r], want,
+                                          err_msg=f"call {k} shard {r}")
+            assert (want.shape[0] == 0) == (r == empty_shard and k > 0), (
+                k, r)
+        owned = sum(g.shape[0] for g in got.values())
+        assert owned == int((slots >= 0).sum()) < PKW["batch_size"]
+    want_state = interop.state_to_numpy(j_st)
+    got_state = interop.state_to_numpy(st)
+    for key, ref in want_state.items():
+        assert_arrays_equal(ref, got_state[key], key)
+
+
+# ---------------------------------------------------------------------------
 # Snapshots across packages and mesh shapes
 # ---------------------------------------------------------------------------
 
@@ -798,9 +946,9 @@ def test_snapshot_crosses_packages_and_mesh_shapes(source):
 def test_a_shard_that_raises_fails_the_step_and_frees_every_thread(
     mesh, monkeypatch
 ):
-    """Shard 5 raises at its third collective, mid-step: the step raises
-    that error, every other shard leaves its barrier, and the mesh serves
-    the next step."""
+    """Shard 5 raises at its third collective (psum or pmax), mid-step:
+    the step raises that error, every other shard leaves its barrier, and
+    the mesh serves the next step."""
     rules, table, index = _build()
     step = make_sharded_decide(CFG, mesh, donate=True)
     state = shard_state(make_state(CFG, device=CPU), mesh)
@@ -814,13 +962,17 @@ def test_a_shard_that_raises_fails_the_step_and_frees_every_thread(
         calls = [0]
 
         def failing(r, ax):
-            def psum(t):
-                calls[0] += 1
-                if calls[0] == 3:
-                    raise RuntimeError("shard 5 failed")
-                return ax.psum(t)
+            def counted(collective):
+                def call(t):
+                    calls[0] += 1
+                    if calls[0] == 3:
+                        raise RuntimeError("shard 5 failed")
+                    return collective(t)
 
-            return fn(r, ax._replace(psum=psum))
+                return call
+
+            return fn(r, ax._replace(psum=counted(ax.psum),
+                                     pmax=counted(ax.pmax)))
 
         return real(failing, rank, coll)
 
