@@ -1181,7 +1181,20 @@ class NativeTokenServer:
                 # discarding its staged state leaves it the sole owner
                 move_sess.closed()
             return
-        # kind == CTRL_FRAME: a non-data-plane request
+        # kind == CTRL_FRAME: one door.control span, the frame taken to its
+        # reply handed to the door
+        sp = (_TR.begin(_TR.DOOR_CONTROL,
+                        P.peek_type(payload) if len(payload) >= 5 else -1)
+              if _TR.ARMED else None)
+        try:
+            self._handle_control_frame(door, fd, gen, payload)
+        finally:
+            if sp is not None:
+                _TR.end(sp)
+
+    def _handle_control_frame(self, door, fd, gen, payload) -> None:
+        """A non-data-plane request off the control lane, answered through
+        ``door`` (or its connection closed)."""
         with self._addr_lock:
             address = self._addr_by_conn.get((fd, gen), f"fd{fd}")
         # rev-3 replication frames ride the control lane but are not

@@ -39,10 +39,12 @@ rev-7 push plane (``attach_push_hub``: lease recalls, rule epochs, breaker
 flips), ``namespace_index`` for the door's per-tenant shed attribution, per
 served batch the server metrics' verdict counters
 (``ServerMetrics.record_verdict_batch``, which feeds the timeline and the
-SLO plane), the cluster stat log's verdict classes and the flight
-recorder's device hops; per report the stat log, the timeline's and the SLO
-plane's completions; per breaker scan the transition counters and, on a
-trip to OPEN, the blackbox dump; and the ``ServerMetrics`` providers
+SLO plane) and the cluster stat log's verdict classes; the flight
+recorder's step spans (``svc.*`` around a dispatch and its materializer,
+``param.*`` around a param request); per report the stat log, the
+timeline's and the SLO plane's completions; per breaker scan the
+transition counters and, on a trip to OPEN, the blackbox dump; and the
+``ServerMetrics`` providers
 (sketch, lease, outcome, breaker).
 
 The hierarchy tier (:mod:`cluster.hierarchy`): a pod's share agent pins
@@ -574,14 +576,19 @@ class DefaultTokenService(TokenService):
         return step
 
     def _prep_cached(self, lookup_snap, cfg, bucket, flow_ids, acq, pr):
+        sp = _TR.begin(_TR.SVC_PREP) if _TR.ARMED else None
         key, hit = self._prep_cache.get(
             lookup_snap[0], bucket, flow_ids, acq, pr
         )
         if hit is not None:
+            if sp is not None:
+                _TR.end(sp, 1)
             return hit
         slots = self._lookup_from(lookup_snap, flow_ids)
         order, batch = self._prep_batch(cfg, slots, acq, pr)
         self._prep_cache.put(key, flow_ids, acq, pr, slots, order, batch)
+        if sp is not None:
+            _TR.end(sp, 0)
         return slots, order, batch
 
     # -- rule management (ClusterFlowRuleManager analog) --------------------
@@ -946,73 +953,93 @@ class DefaultTokenService(TokenService):
         )
         pr = np.zeros(n, bool) if prios is None else np.asarray(prios, bool)
         cap = self.config.batch_size
-        if n > cap:
-            return self._dispatch_oversized(flow_ids, acq, pr, n, cap)
-        # -- host prep, outside the lock --
-        lookup_snap = self._lookup
-        uniform = bool(acq.min() == acq.max())
-        bucket = next(b for b in self._serve_buckets if n <= b)
-        cfg = self.config._replace(batch_size=bucket)
-        slots, order, batch = self._prep_cached(
-            lookup_snap, cfg, bucket, flow_ids, acq, pr
-        )
-        step = self._step_fn(bucket, uniform)
-        slots_ns = slots  # pre-mask slots: the verdicts' namespaces
-        moved_mask = moved_epochs = None
-        # -- device step: the only serialized section --
-        with self._lock:
-            if self._lookup is not lookup_snap:
-                # rules reloaded between prep and step: redo the prep
-                slots = self._lookup_from(self._lookup, flow_ids)
-                slots_ns = slots
-                order, batch = self._prep_batch(cfg, slots, acq, pr)
-            mv = self._moving_snap
-            if mv is not None:
-                # rows of a MOVING namespace leave the device batch (they
-                # count nothing) and answer MOVED; under the lock, so a
-                # begin_move orders strictly against every step. The batch
-                # is prepared again on the masked slots: the decide kernel
-                # needs a slot's in-range rows contiguous
-                moved_mask, moved_epochs = self._moving_mask_for(slots, mv)
-                if moved_mask is not None:
-                    slots = np.where(moved_mask, np.int32(-1),
-                                     slots).astype(np.int32)
+        sp = _TR.begin(_TR.SVC_DISPATCH, n) if _TR.ARMED else None
+        try:
+            if n > cap:
+                return self._dispatch_oversized(flow_ids, acq, pr, n, cap,
+                                                sp)
+            # -- host prep, outside the lock --
+            lookup_snap = self._lookup
+            uniform = bool(acq.min() == acq.max())
+            bucket = next(b for b in self._serve_buckets if n <= b)
+            cfg = self.config._replace(batch_size=bucket)
+            slots, order, batch = self._prep_cached(
+                lookup_snap, cfg, bucket, flow_ids, acq, pr
+            )
+            step = self._step_fn(bucket, uniform)
+            slots_ns = slots  # pre-mask slots: the verdicts' namespaces
+            moved_mask = moved_epochs = None
+            # -- device step: the only serialized section --
+            with self._lock:
+                if self._lookup is not lookup_snap:
+                    # rules reloaded between prep and step: redo the prep
+                    slots = self._lookup_from(self._lookup, flow_ids)
+                    slots_ns = slots
                     order, batch = self._prep_batch(cfg, slots, acq, pr)
-            now = self._engine_now()
-            verdicts = self._run_step(step, batch, now)
-            if self._dirty is not None:
-                self._mark_dirty_locked(slots)
-        if _TR.ARMED:  # flight recorder: device step submitted
-            _TR.record(_TR.DEVICE_IN, aux=n)
+                mv = self._moving_snap
+                if mv is not None:
+                    # rows of a MOVING namespace leave the device batch
+                    # (they count nothing) and answer MOVED; under the
+                    # lock, so a begin_move orders strictly against every
+                    # step. The batch is prepared again on the masked
+                    # slots: the decide kernel needs a slot's in-range rows
+                    # contiguous
+                    moved_mask, moved_epochs = self._moving_mask_for(
+                        slots, mv)
+                    if moved_mask is not None:
+                        slots = np.where(moved_mask, np.int32(-1),
+                                         slots).astype(np.int32)
+                        order, batch = self._prep_batch(cfg, slots, acq, pr)
+                now = self._engine_now()
+                lp = _TR.begin(_TR.SVC_LAUNCH, n) if _TR.ARMED else None
+                verdicts = self._run_step(step, batch, now)
+                if lp is not None:
+                    _TR.end(lp)
+                if self._dirty is not None:
+                    self._mark_dirty_locked(slots)
+        finally:
+            if sp is not None:
+                _TR.end(sp)
 
         def _materialize():
-            status_sorted = verdicts.status[:n].cpu().numpy()
-            remaining_sorted = verdicts.remaining[:n].cpu().numpy()
-            wait_sorted = verdicts.wait_ms[:n].cpu().numpy()
-            if order is None:
-                status = np.array(status_sorted)
-                remaining = np.array(remaining_sorted, np.int32)
-                wait = np.array(wait_sorted, np.int32)
-            else:
-                status = np.empty(n, status_sorted.dtype)
-                remaining = np.empty(n, np.int32)
-                wait = np.empty(n, np.int32)
-                status[order] = status_sorted
-                remaining[order] = remaining_sorted
-                wait[order] = wait_sorted
-            if moved_mask is not None:
-                self._overlay_moved(status, remaining, wait, moved_mask,
-                                    moved_epochs)
-            self._record_served(status, wait, slots_ns, t_dispatch)
-            return status, remaining, wait
+            mp = (_TR.begin(_TR.SVC_MATERIALIZE, n, sp.step if sp else 0)
+                  if _TR.ARMED else None)
+            try:
+                dp = _TR.begin(_TR.SVC_D2H, n) if _TR.ARMED else None
+                status_sorted = verdicts.status[:n].cpu().numpy()
+                remaining_sorted = verdicts.remaining[:n].cpu().numpy()
+                wait_sorted = verdicts.wait_ms[:n].cpu().numpy()
+                if dp is not None:
+                    _TR.end(dp)
+                if order is None:
+                    status = np.array(status_sorted)
+                    remaining = np.array(remaining_sorted, np.int32)
+                    wait = np.array(wait_sorted, np.int32)
+                else:
+                    status = np.empty(n, status_sorted.dtype)
+                    remaining = np.empty(n, np.int32)
+                    wait = np.empty(n, np.int32)
+                    status[order] = status_sorted
+                    remaining[order] = remaining_sorted
+                    wait[order] = wait_sorted
+                if moved_mask is not None:
+                    self._overlay_moved(status, remaining, wait, moved_mask,
+                                        moved_epochs)
+                self._record_served(status, wait, slots_ns, t_dispatch)
+                return status, remaining, wait
+            finally:
+                if mp is not None:
+                    _TR.end(mp)
 
         return _materialize
 
-    def _dispatch_oversized(self, flow_ids, acq, pr, n, cap):
+    def _dispatch_oversized(self, flow_ids, acq, pr, n, cap, sp):
         """Split an oversized burst into ``cap``-sized frames; runs of full
         frames fold into fused chained steps (greedy largest-fit over the
         fuse ladder), the rest take the per-chunk path. Every dispatch is
-        issued before any chunk materializes."""
+        issued before any chunk materializes. ``sp`` is the burst's
+        ``svc.dispatch`` span (or None): its materializer is one
+        ``svc.materialize`` over the chunks' own."""
         mats = []
         pos = 0
         ladder = self._fuse_depths
@@ -1037,8 +1064,14 @@ class DefaultTokenService(TokenService):
             )
 
         def _concat():
-            parts = [m() for m in mats]
-            return tuple(np.concatenate(ps) for ps in zip(*parts))
+            mp = (_TR.begin(_TR.SVC_MATERIALIZE, n, sp.step if sp else 0)
+                  if _TR.ARMED else None)
+            try:
+                parts = [m() for m in mats]
+                return tuple(np.concatenate(ps) for ps in zip(*parts))
+            finally:
+                if mp is not None:
+                    _TR.end(mp)
 
         return _concat
 
@@ -1046,6 +1079,7 @@ class DefaultTokenService(TokenService):
         """``depth`` consecutive full frames as one chained step at one
         shared ``now``; returns a request-order materializer."""
         t_dispatch = time.monotonic()
+        sp = _TR.begin(_TR.SVC_DISPATCH, depth) if _TR.ARMED else None
         lookup_snap = self._lookup
         uniform = bool(acq.min() == acq.max())
         cfg = self.config
@@ -1083,21 +1117,28 @@ class DefaultTokenService(TokenService):
                         np.where(moved_span, np.int32(-1),
                                  span_ns).astype(np.int32), acq, pr)
             now = self._engine_now()
+            lp = _TR.begin(_TR.SVC_LAUNCH, depth * cap) if _TR.ARMED else None
             verdicts = self._run_step(step, block, now)
+            if lp is not None:
+                _TR.end(lp)
             if self._dirty is not None:
                 self._mark_dirty_locked(
                     np.concatenate([p[0] for p in preps])
                 )
         _SM.record_fused(depth)
-        if _TR.ARMED:  # flight recorder: fused group submitted
-            _TR.record(_TR.FUSE, aux=depth)
-            _TR.record(_TR.DEVICE_IN, aux=depth * cap)
+        if sp is not None:
+            _TR.end(sp)
 
         def _materialize():
+            total = depth * cap
+            mp = (_TR.begin(_TR.SVC_MATERIALIZE, total, sp.step if sp else 0)
+                  if _TR.ARMED else None)
+            dp = _TR.begin(_TR.SVC_D2H, total) if _TR.ARMED else None
             status_all = verdicts.status.cpu().numpy()
             remaining_all = verdicts.remaining.cpu().numpy()
             wait_all = verdicts.wait_ms.cpu().numpy()
-            total = depth * cap
+            if dp is not None:
+                _TR.end(dp)
             status = np.empty(total, status_all.dtype)
             remaining = np.empty(total, np.int32)
             wait = np.empty(total, np.int32)
@@ -1115,6 +1156,8 @@ class DefaultTokenService(TokenService):
                 self._overlay_moved(status, remaining, wait, moved_span,
                                     moved_epochs_span)
             self._record_served(status, wait, span_ns, t_dispatch)
+            if mp is not None:
+                _TR.end(mp)
             return status, remaining, wait
 
         return _materialize
@@ -1160,16 +1203,15 @@ class DefaultTokenService(TokenService):
         """The host sinks of one served batch: the per-namespace verdict
         counters (``sentinel_server_verdicts_total``, and through them the
         timeline and the SLO plane; ``slots`` is request order and
-        pre-mask, so MOVED verdicts land on their namespace), the flight
-        recorder, one stat-log line per verdict class, and, when the batch
-        answered DEGRADED, a breaker scan (rate-limited)."""
+        pre-mask, so MOVED verdicts land on their namespace), one stat-log
+        line per verdict class, and, when the batch answered DEGRADED, a
+        breaker scan (rate-limited); one ``svc.sinks`` span."""
+        sp = _TR.begin(_TR.SVC_SINKS, status.shape[0]) if _TR.ARMED else None
         _SM.record_verdict_batch(
             status, *self._ns_attribution(slots),
             latency_ms=(time.monotonic() - t_dispatch) * 1e3,
             wait_ms=wait,
         )
-        if _TR.ARMED:  # flight recorder: device step materialized
-            _TR.record(_TR.DEVICE_OUT, aux=status.shape[0])
         n_degraded = 0
         for event, code in self._STAT_CLASSES:
             hits = int((status == code).sum())
@@ -1179,6 +1221,8 @@ class DefaultTokenService(TokenService):
                     n_degraded = hits
         if n_degraded:
             self._breaker_scan()
+        if sp is not None:
+            _TR.end(sp)
 
     def _mark_dirty_locked(self, slots: np.ndarray) -> None:
         """Replication bookkeeping of one device step: the slots it
@@ -1294,21 +1338,28 @@ class DefaultTokenService(TokenService):
         a mixed verdict (a conservative overcount)."""
         if not param_hashes:
             return TokenResult(TokenStatus.OK)
-        admit = self._param_step(flow_id, acquire, param_hashes)
+        step = _TR.current_step() if _TR.ARMED else 0
+        admit = self._param_step(flow_id, acquire, param_hashes, step)
         if admit is None:
             return TokenResult(TokenStatus.NO_RULE_EXISTS)
-        if bool(admit.all()):  # the verdict read: waits for the step
-            return TokenResult(TokenStatus.OK)
-        return TokenResult(TokenStatus.BLOCKED)
+        sp = _TR.begin(_TR.PARAM_SYNC, 0, step) if _TR.ARMED else None
+        ok = bool(admit.all())  # the verdict read: waits for the step
+        if sp is not None:
+            _TR.end(sp)
+        return TokenResult(TokenStatus.OK if ok else TokenStatus.BLOCKED)
 
-    def _param_step(self, flow_id, acquire, param_hashes):
+    def _param_step(self, flow_id, acquire, param_hashes, step: int = 0):
         """The param step of one request, up to its verdict: returns the
         request's ``admit`` rows on the device (unread, so nothing here
-        waits for the stream), or None when the flow has no param rule."""
+        waits for the stream), or None when the flow has no param rule.
+        ``step`` is the request's step id for its ``param.*`` spans."""
         pc = self.param_config
         with self._lock:
+            sp = _TR.begin(_TR.PARAM_PREP, 0, step) if _TR.ARMED else None
             entry = self._param_rules.get(int(flow_id))
             if entry is None:
+                if sp is not None:
+                    _TR.end(sp)
                 return None
             slot, count, items = entry
             hashes = np.asarray(list(param_hashes), dtype=np.int64)
@@ -1332,6 +1383,10 @@ class DefaultTokenService(TokenService):
             valid[:n] = True
             now = self._engine_now()
             dev = self.device
+            if sp is not None:
+                _TR.end(sp, n)
+            lp = (_TR.begin(_TR.PARAM_LAUNCH, n_pad, step) if _TR.ARMED
+                  else None)
             _, admit, _est = param_decide(
                 pc,
                 self._param_state,
@@ -1344,6 +1399,8 @@ class DefaultTokenService(TokenService):
                 now,
                 idx_slim=idx_slim,
             )
+            if lp is not None:
+                _TR.end(lp)
             if self._dirty is not None:
                 self._dirty["param"].add(int(slot))
         return admit[:n]

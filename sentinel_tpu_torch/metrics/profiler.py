@@ -12,7 +12,10 @@ The hook also drives the host-side flight recorder (``sentinel_tpu_torch.trace``
 ``start`` arms the rings at full sampling so every request in the profiled
 window is traceable end-to-end, and ``stop`` writes the assembled spans as
 ``trace-spans-<ms>.json`` next to the Chrome trace (``trace-<ms>.json``,
-host ops and, on a card, its kernels) — one command captures
+host ops and, on a card, its kernels), with the service's, the param
+step's and the control lane's step spans on the wall clock
+(``stepSpans``, ``clockAnchor``): the Chrome trace's ``ts`` (µs) plus its
+``baseTimeNanoseconds`` — one command captures
 BOTH the device timeline and the host pipeline stages that fed it. A window
 where the device trace shows idle gaps and the span artifact shows frames
 parked between ``enqueue`` and ``dispatch`` is the host starving the

@@ -3,7 +3,9 @@
 
 - :mod:`~sentinel_tpu_torch.trace.ring` — per-thread fixed-size struct
   rings of ``(t_ns, stage, xid, shard, aux)`` events, fed by every hop of
-  the front door, the device step boundary, and the control paths.
+  the front door and the control paths, and of step spans (start, end,
+  parent, step id) inside the service step, the param step and the door's
+  control lane.
 - :mod:`~sentinel_tpu_torch.trace.spans` — xid-hash-sampled end-to-end
   spans assembled on demand across rings.
 - :mod:`~sentinel_tpu_torch.trace.blackbox` — atomic post-mortem dumps

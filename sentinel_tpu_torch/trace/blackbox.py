@@ -84,6 +84,9 @@ def _document(reason: str, window_s: Optional[float]) -> dict:
         "windowSeconds": win,
         "trace": _R.status(),
         "events": _R.events(since_ns=since),
+        # step spans that ended in the window, on the wall clock
+        "clockAnchor": _R.clock_anchor(),
+        "stepSpans": _R.spans(since_ns=since, wall=True),
         "metrics": server_metrics().snapshot(),
         "slo": slo_plane().snapshot(),
     }
