@@ -953,11 +953,11 @@ class DefaultTokenService(TokenService):
         )
         pr = np.zeros(n, bool) if prios is None else np.asarray(prios, bool)
         cap = self.config.batch_size
-        sp = _TR.begin(_TR.SVC_DISPATCH, n) if _TR.ARMED else None
+        sp = (_TR.begin(_TR.SVC_BURST if n > cap else _TR.SVC_DISPATCH, n)
+              if _TR.ARMED else None)
         try:
             if n > cap:
-                return self._dispatch_oversized(flow_ids, acq, pr, n, cap,
-                                                sp)
+                return self._dispatch_oversized(flow_ids, acq, pr, n, cap)
             # -- host prep, outside the lock --
             lookup_snap = self._lookup
             uniform = bool(acq.min() == acq.max())
@@ -1033,13 +1033,11 @@ class DefaultTokenService(TokenService):
 
         return _materialize
 
-    def _dispatch_oversized(self, flow_ids, acq, pr, n, cap, sp):
+    def _dispatch_oversized(self, flow_ids, acq, pr, n, cap):
         """Split an oversized burst into ``cap``-sized frames; runs of full
         frames fold into fused chained steps (greedy largest-fit over the
         fuse ladder), the rest take the per-chunk path. Every dispatch is
-        issued before any chunk materializes. ``sp`` is the burst's
-        ``svc.dispatch`` span (or None): its materializer is one
-        ``svc.materialize`` over the chunks' own."""
+        issued before any chunk materializes."""
         mats = []
         pos = 0
         ladder = self._fuse_depths
@@ -1064,14 +1062,8 @@ class DefaultTokenService(TokenService):
             )
 
         def _concat():
-            mp = (_TR.begin(_TR.SVC_MATERIALIZE, n, sp.step if sp else 0)
-                  if _TR.ARMED else None)
-            try:
-                parts = [m() for m in mats]
-                return tuple(np.concatenate(ps) for ps in zip(*parts))
-            finally:
-                if mp is not None:
-                    _TR.end(mp)
+            parts = [m() for m in mats]
+            return tuple(np.concatenate(ps) for ps in zip(*parts))
 
         return _concat
 
@@ -1133,32 +1125,34 @@ class DefaultTokenService(TokenService):
             total = depth * cap
             mp = (_TR.begin(_TR.SVC_MATERIALIZE, total, sp.step if sp else 0)
                   if _TR.ARMED else None)
-            dp = _TR.begin(_TR.SVC_D2H, total) if _TR.ARMED else None
-            status_all = verdicts.status.cpu().numpy()
-            remaining_all = verdicts.remaining.cpu().numpy()
-            wait_all = verdicts.wait_ms.cpu().numpy()
-            if dp is not None:
-                _TR.end(dp)
-            status = np.empty(total, status_all.dtype)
-            remaining = np.empty(total, np.int32)
-            wait = np.empty(total, np.int32)
-            for f, (_slots_f, order_f, _b) in enumerate(preps):
-                dst = slice(f * cap, (f + 1) * cap)
-                if order_f is None:
-                    status[dst] = status_all[f]
-                    remaining[dst] = remaining_all[f]
-                    wait[dst] = wait_all[f]
-                else:
-                    status[dst][order_f] = status_all[f]
-                    remaining[dst][order_f] = remaining_all[f]
-                    wait[dst][order_f] = wait_all[f]
-            if moved_span is not None:
-                self._overlay_moved(status, remaining, wait, moved_span,
-                                    moved_epochs_span)
-            self._record_served(status, wait, span_ns, t_dispatch)
-            if mp is not None:
-                _TR.end(mp)
-            return status, remaining, wait
+            try:
+                dp = _TR.begin(_TR.SVC_D2H, total) if _TR.ARMED else None
+                status_all = verdicts.status.cpu().numpy()
+                remaining_all = verdicts.remaining.cpu().numpy()
+                wait_all = verdicts.wait_ms.cpu().numpy()
+                if dp is not None:
+                    _TR.end(dp)
+                status = np.empty(total, status_all.dtype)
+                remaining = np.empty(total, np.int32)
+                wait = np.empty(total, np.int32)
+                for f, (_slots_f, order_f, _b) in enumerate(preps):
+                    dst = slice(f * cap, (f + 1) * cap)
+                    if order_f is None:
+                        status[dst] = status_all[f]
+                        remaining[dst] = remaining_all[f]
+                        wait[dst] = wait_all[f]
+                    else:
+                        status[dst][order_f] = status_all[f]
+                        remaining[dst][order_f] = remaining_all[f]
+                        wait[dst][order_f] = wait_all[f]
+                if moved_span is not None:
+                    self._overlay_moved(status, remaining, wait, moved_span,
+                                        moved_epochs_span)
+                self._record_served(status, wait, span_ns, t_dispatch)
+                return status, remaining, wait
+            finally:
+                if mp is not None:
+                    _TR.end(mp)
 
         return _materialize
 

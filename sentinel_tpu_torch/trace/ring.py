@@ -25,10 +25,33 @@ span id. The discipline mirrors ``chaos/``:
   sampled: ``arm(sample=0.0)`` records every step span and no per-frame
   event.
 
+The step spans (``aux`` in parens):
+
+- ``svc.dispatch``: one device step's dispatch in
+  ``DefaultTokenService.dispatch_batch_arrays`` or ``_dispatch_fused``
+  (rows; a fused step: its depth); its children ``svc.prep``, once per
+  frame in ``_prep_cached`` (1 prep-cache hit, 0 miss), and
+  ``svc.launch``, the launches under the service lock (rows);
+- ``svc.burst``: an oversized burst, the parent of its ``svc.dispatch``
+  spans (rows); each of those is a step of its own;
+- ``svc.materialize``: a dispatch's materializer, a root with its
+  dispatch's step id (rows); its children ``svc.d2h``, the verdict reads
+  (rows), and ``svc.sinks``, ``_record_served`` (rows);
+- ``door.control``: ``NativeTokenServer._handle_control_item`` for a
+  control frame, taken to its reply handed to the door (message type);
+  a PARAM_FLOW frame's ``param.prep`` (the lock taken to the call of
+  ``param_decide``; values), ``param.launch`` (that call, uploads
+  included; padded values) and ``param.sync`` (the verdict read of
+  ``request_params_token``; 0) are its children.
+
 Rows carry ``time.monotonic_ns()``. ``arm`` takes one (monotonic, wall)
 anchor pair, so :func:`spans` also returns them on the clock of
 ``time.time_ns()``: the clock a ``torch.profiler`` device trace comes back
-on, so a step span lines up with the device's idle gaps.
+on (in an exported Chrome trace, ``baseTimeNanoseconds`` plus ``ts`` in
+µs), so a step span lines up with the device's idle gaps. The profiler
+hook's ``trace-spans-<ms>.json``, ``cluster/server/trace?action=spans``
+and a black-box dump carry the spans on that clock (``stepSpans``) and the
+anchor (``clockAnchor``).
 
 Rings are registered process-wide so :mod:`sentinel_tpu_torch.trace.spans` can
 assemble per-xid spans across threads and :mod:`sentinel_tpu_torch.trace.blackbox`
@@ -66,7 +89,8 @@ SHM_POLL = 15    # shm ring door poll/doorbell activity (aux = frames)
 OUTCOME = 16     # batched completion report ingested (aux = rows accepted)
 
 # -- step-span stage codes (aux meaning in parens) ----------------------------
-SVC_DISPATCH = 20     # service dispatch: prep + launch (rows; fused: depth)
+SVC_DISPATCH = 20     # one device step's dispatch: prep + launch (rows;
+#                       fused: depth)
 SVC_PREP = 21         # one frame's host prep (1 = prep-cache hit, 0 = miss)
 SVC_LAUNCH = 22       # the device step's launches, under the lock (rows)
 SVC_MATERIALIZE = 23  # a dispatch's materializer: d2h + sinks (rows)
@@ -76,8 +100,10 @@ DOOR_CONTROL = 26     # one control-lane frame, taken to reply (message type)
 PARAM_PREP = 27       # the param step's host prep, under the lock (values)
 PARAM_LAUNCH = 28     # the param step's uploads and launches (padded values)
 PARAM_SYNC = 29       # the param verdict read (0)
+SVC_BURST = 30        # an oversized burst's dispatches (rows)
 # the stages whose spans enclose others: on the thread's stack while open
-_PARENT_STAGES = frozenset((SVC_DISPATCH, SVC_MATERIALIZE, DOOR_CONTROL))
+_PARENT_STAGES = frozenset(
+    (SVC_DISPATCH, SVC_MATERIALIZE, DOOR_CONTROL, SVC_BURST))
 
 STAGE_NAMES: Dict[int, str] = {
     CLIENT_IN: "client_in",
@@ -103,6 +129,7 @@ STAGE_NAMES: Dict[int, str] = {
     PARAM_PREP: "param.prep",
     PARAM_LAUNCH: "param.launch",
     PARAM_SYNC: "param.sync",
+    SVC_BURST: "svc.burst",
 }
 
 # one ring row: 56 bytes, fixed. ``span`` is 0 on a point event.
@@ -128,7 +155,6 @@ _REG_LOCK = threading.Lock()
 _RINGS: List["_ThreadRing"] = []
 _TLS = threading.local()
 _ARMED_AT_NS: Optional[int] = None
-_RING_EVENTS = DEFAULT_RING_EVENTS
 # (monotonic_ns, time_ns) taken back to back at the last arm
 _ANCHOR: Optional[tuple] = None
 # span and step ids; next() on a count is atomic under the GIL
@@ -167,14 +193,11 @@ class _ThreadRing:
 
 def _ring() -> _ThreadRing:
     r = getattr(_TLS, "ring", None)
-    if r is None or r.mask + 1 != _RING_EVENTS:
-        fresh = _ThreadRing(_RING_EVENTS, threading.current_thread().name)
-        _TLS.ring = fresh
+    if r is None:
+        r = _ThreadRing(DEFAULT_RING_EVENTS, threading.current_thread().name)
+        _TLS.ring = r
         with _REG_LOCK:
-            if r in _RINGS:  # re-armed at another size: start anew
-                _RINGS.remove(r)
-            _RINGS.append(fresh)
-        r = fresh
+            _RINGS.append(r)
     return r
 
 
@@ -227,8 +250,10 @@ def record_many(stage: int, xids, shard: int = 0, aux: int = 0) -> None:
 def begin(stage: int, aux: int = 0, step: int = 0) -> _Span:
     """Open a step span on this thread; returns what :func:`end` takes.
     Its parent is the thread's innermost open span of a parent stage
-    (``svc.dispatch``, ``svc.materialize``, ``door.control``; 0 when none);
-    its step is ``step`` when given, else the parent's, else a new one.
+    (``svc.dispatch``, ``svc.burst``, ``svc.materialize``,
+    ``door.control``; 0 when none); its step is ``step`` when given, else
+    a new one for a ``svc.dispatch`` (each is one device step), else the
+    parent's, else a new one.
     Call sites guard with ``sp = ring.begin(...) if ring.ARMED else None``
     and close with ``if sp is not None: ring.end(sp)``, so a span opened
     armed is always written and one opened disarmed never is. A span of a
@@ -239,7 +264,8 @@ def begin(stage: int, aux: int = 0, step: int = 0) -> _Span:
     span = next(_IDS)
     parent = stack[-1] if stack else None
     if not step:
-        step = parent.step if parent is not None else span
+        step = (parent.step if parent is not None and stage != SVC_DISPATCH
+                else span)
     sp = _Span(time.monotonic_ns(), span,
                parent.span if parent is not None else 0, step, stage, aux)
     if stage in _PARENT_STAGES:
@@ -267,18 +293,12 @@ def current_step() -> int:
 
 
 # -- arming -------------------------------------------------------------------
-def arm(sample: float = 1.0, ring_events: Optional[int] = None) -> None:
-    """Arm the recorder; ``sample`` is the fraction of xids recorded,
-    ``ring_events`` each thread's ring size in events (rounded up to a
-    power of two; None keeps the current size, 8,192 until changed). A
-    thread whose ring has another size starts a new one at its next row."""
+def arm(sample: float = 1.0) -> None:
+    """Arm the recorder; ``sample`` is the fraction of xids recorded."""
     global ARMED, _SAMPLE_LIMIT, _SAMPLE_FRACTION, _ARMED_AT_NS, _ANCHOR
-    global _RING_EVENTS
     sample = min(1.0, max(0.0, float(sample)))
     _SAMPLE_FRACTION = sample
     _SAMPLE_LIMIT = int(sample * (1 << 32))
-    if ring_events is not None:
-        _RING_EVENTS = 1 << max(0, int(ring_events) - 1).bit_length()
     m0 = time.monotonic_ns()
     wall = time.time_ns()
     m1 = time.monotonic_ns()
@@ -303,7 +323,7 @@ def status() -> dict:
     return {
         "armed": ARMED,
         "sample": _SAMPLE_FRACTION,
-        "ringEvents": _RING_EVENTS,
+        "ringEvents": DEFAULT_RING_EVENTS,
         "threads": threads,
         "totalEvents": sum(t["events"] for t in threads),
     }
@@ -313,13 +333,11 @@ def reset_for_tests() -> None:
     """Disarm and drop every registered ring (tests/benches only — live
     threads re-register their ring on the next armed record)."""
     global _SAMPLE_LIMIT, _SAMPLE_FRACTION, _ARMED_AT_NS, _ANCHOR
-    global _RING_EVENTS
     disarm()
     _SAMPLE_LIMIT = 1 << 32
     _SAMPLE_FRACTION = 1.0
     _ARMED_AT_NS = None
     _ANCHOR = None
-    _RING_EVENTS = DEFAULT_RING_EVENTS
     with _REG_LOCK:
         _RINGS.clear()
     _TLS.ring = None
@@ -377,12 +395,14 @@ def clock_anchor() -> Optional[dict]:
     return {"monotonicNs": _ANCHOR[0], "wallNs": _ANCHOR[1]}
 
 
-def spans(since_ns: Optional[int] = None, wall: bool = False) -> List[dict]:
+def spans(since_ns: Optional[int] = None, wall: bool = False,
+          limit: Optional[int] = None) -> List[dict]:
     """Every step span in the rings, sorted by start: ``stage``,
     ``startNs``, ``endNs``, ``span``, ``parent``, ``step``, ``aux``,
     ``thread``. Times are ``time.monotonic_ns()``, or with ``wall`` the
     clock of ``time.time_ns()`` by the last arm's anchor; ``since_ns``
-    (monotonic) keeps the spans that ended at or after it."""
+    (monotonic) keeps the spans that ended at or after it, ``limit`` those
+    of the newest ``limit`` step ids."""
     shift = 0
     if wall and _ANCHOR is not None:
         shift = _ANCHOR[1] - _ANCHOR[0]
@@ -403,6 +423,9 @@ def spans(since_ns: Optional[int] = None, wall: bool = False) -> List[dict]:
                 "aux": aux,
                 "thread": thread,
             })
+    if limit is not None:
+        newest = set(sorted({s["step"] for s in out})[::-1][:max(0, limit)])
+        out = [s for s in out if s["step"] in newest]
     out.sort(key=lambda s: s["startNs"])
     return out
 

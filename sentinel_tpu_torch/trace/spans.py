@@ -92,11 +92,11 @@ def build_info() -> dict:
 
 def write_artifact(path: str, limit: int = 256) -> str:
     """Dump recent spans + completeness to a JSON artifact (the profiler
-    hook's stop() product), with every step span in the rings on the wall
-    clock (``time.time_ns()``; the Chrome trace the hook writes beside it
-    is on it too, as ``baseTimeNanoseconds`` plus ``ts``) and the anchor
-    that maps the rings' monotonic clock to it. Returns the written
-    path."""
+    hook's stop() product), with the step spans of the newest ``limit``
+    steps on the wall clock (``time.time_ns()``; the Chrome trace the hook
+    writes beside it is on it too, as ``baseTimeNanoseconds`` plus ``ts``)
+    and the anchor that maps the rings' monotonic clock to it. Returns the
+    written path."""
     spans = assemble_recent(limit=limit)
     doc = {
         "schema": "sentinel-trace-spans/1",
@@ -106,7 +106,7 @@ def write_artifact(path: str, limit: int = 256) -> str:
         "completeness": completeness(spans),
         "spans": spans,
         "clockAnchor": _R.clock_anchor(),
-        "stepSpans": _R.spans(wall=True),
+        "stepSpans": _R.spans(wall=True, limit=limit),
     }
     d = os.path.dirname(os.path.abspath(path))
     os.makedirs(d, exist_ok=True)

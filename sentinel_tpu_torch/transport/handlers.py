@@ -542,8 +542,9 @@ def cmd_cluster_server_trace(params, body):
       xids end-to-end sampled; control events always record while armed);
     - ``status``: arming state + per-thread ring occupancy;
     - ``spans``: assemble sampled end-to-end spans on demand — ``xid``
-      picks one, otherwise the newest ``limit`` sampled xids, with every
-      step span in the rings on the wall clock and the clock anchor; ``dir``
+      picks one, otherwise the newest ``limit`` sampled xids, with the
+      step spans of the newest ``limit`` steps on the wall clock and the
+      clock anchor; ``dir``
       additionally writes the JSON artifact and returns its path;
     - ``blackbox``: force a black-box dump now (``dir`` overrides the
       configured directory) — the same artifact brownout escalation,
@@ -582,7 +583,7 @@ def cmd_cluster_server_trace(params, body):
             "completeness": spans.completeness(assembled),
             "spans": assembled,
             "clockAnchor": trace_ring.clock_anchor(),
-            "stepSpans": trace_ring.spans(wall=True),
+            "stepSpans": trace_ring.spans(wall=True, limit=limit),
         }
     if action == "blackbox":
         if not blackbox.enabled() and not params.get("dir"):

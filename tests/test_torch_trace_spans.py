@@ -5,12 +5,14 @@ on the CPU.
 - Disarmed, a dispatch writes no row; armed at sample 0, a dispatch and its
   materializer write the ``svc.*`` tree (one step id, children inside their
   parents, the prep span's aux the prep cache's hit or miss), and so do the
-  fused path and an oversized burst.
+  fused path and an oversized burst (a ``svc.burst`` over its device steps,
+  no stage nested in itself).
 - The param step's three spans share one step; through the door they are
   children of the ``door.control`` span of their frame.
 - Spans map onto the wall clock by the anchor taken at ``arm``; the ring
-  size is an argument of ``arm``; the operator's documents carry the spans
-  and the anchor; the old device-boundary stages are gone.
+  size is fixed; the operator's documents carry the spans and the anchor,
+  the trace command as many steps as its ``limit``; the old
+  device-boundary stages are gone.
 """
 
 import json
@@ -80,13 +82,14 @@ def _inside(child, parent):
 
 
 def _tree_ok(spans):
-    """Every child lies inside its parent and shares its step."""
+    """Every child lies inside its parent and shares its step, but a
+    ``svc.dispatch``, which starts a step of its own."""
     ids = _by_id(spans)
     for s in spans:
         if s["parent"]:
             p = ids[s["parent"]]
             assert _inside(s, p), (s, p)
-            assert s["step"] == p["step"], (s, p)
+            assert (s["step"] != p["step"]) == (s["stage"] == "svc.dispatch")
 
 
 def test_disarmed_dispatch_writes_no_row():
@@ -125,9 +128,20 @@ def test_dispatch_and_materialize_write_the_span_tree():
         assert disp["endNs"] <= mat["startNs"]
 
 
+def _no_stage_in_itself(spans):
+    """No span has an ancestor of its own stage."""
+    ids = _by_id(spans)
+    for s in spans:
+        p = ids.get(s["parent"])
+        while p is not None:
+            assert p["stage"] != s["stage"], (s, p)
+            p = ids.get(p["parent"])
+
+
 def test_fused_step_and_oversized_burst():
     """612 rows at batch 256: a fused depth-2 step and one 100-row chunk,
-    under one burst ``svc.dispatch`` and one outer ``svc.materialize``."""
+    each a step of its own under one ``svc.burst``; each materializes as
+    a root with its own step id."""
     svc = _service()
     ring.arm(sample=0.0)
     status, _rem, _wait = svc.dispatch_batch_arrays(_pull(612))()
@@ -135,26 +149,53 @@ def test_fused_step_and_oversized_burst():
     assert status.shape == (612,)
     spans = ring.spans()
     _tree_ok(spans)
-    assert len({s["step"] for s in spans}) == 1
+    _no_stage_in_itself(spans)
+    assert len({s["step"] for s in spans}) == 3  # the burst, two steps
     roots = [s for s in spans if s["parent"] == 0]
     assert sorted((s["stage"], s["aux"]) for s in roots) == [
-        ("svc.dispatch", 612), ("svc.materialize", 612)]
-    burst = next(s for s in roots if s["stage"] == "svc.dispatch")
-    inner = [s for s in spans if s["stage"] == "svc.dispatch"
-             and s["parent"] == burst["span"]]
+        ("svc.burst", 612), ("svc.materialize", 100),
+        ("svc.materialize", 512)]
+    burst = next(s for s in roots if s["stage"] == "svc.burst")
+    inner = [s for s in spans if s["stage"] == "svc.dispatch"]
+    assert all(s["parent"] == burst["span"] for s in inner)
     assert sorted(s["aux"] for s in inner) == [2, 100]  # depth 2; 100 rows
     fused = next(s for s in inner if s["aux"] == 2)
     kids = [s for s in spans if s["parent"] == fused["span"]]
     assert sorted(s["stage"] for s in kids) == [
         "svc.launch", "svc.prep", "svc.prep"]  # one prep a frame
     assert next(s for s in kids if s["stage"] == "svc.launch")["aux"] == 512
-    outer = next(s for s in roots if s["stage"] == "svc.materialize")
-    mats = [s for s in spans if s["stage"] == "svc.materialize"
-            and s["parent"] == outer["span"]]
-    assert sorted(s["aux"] for s in mats) == [100, 512]
-    for m in mats:
+    for d in inner:
+        (m,) = [s for s in roots if s["stage"] == "svc.materialize"
+                and s["step"] == d["step"]]
+        assert m["aux"] == (512 if d is fused else 100)
         assert sorted(s["stage"] for s in spans
                       if s["parent"] == m["span"]) == ["svc.d2h", "svc.sinks"]
+
+
+def test_a_four_frame_pull_is_one_fused_step_counted_once():
+    """The native door's shape, a pull of 4 x ``batch_size`` rows: one
+    ``svc.burst`` over one depth-4 ``svc.dispatch``, and one
+    ``svc.materialize``; a reader of ``svc.dispatch`` sees each device step
+    once."""
+    svc = _service()
+    ring.arm(sample=0.0)
+    for seed in (1, 2):
+        svc.dispatch_batch_arrays(_pull(4 * CFG.batch_size, seed))()
+    ring.disarm()
+    spans = ring.spans()
+    _tree_ok(spans)
+    _no_stage_in_itself(spans)
+    counts = {}
+    for s in spans:
+        counts[s["stage"]] = counts.get(s["stage"], 0) + 1
+    assert counts == {"svc.burst": 2, "svc.dispatch": 2, "svc.prep": 8,
+                      "svc.launch": 2, "svc.materialize": 2, "svc.d2h": 2,
+                      "svc.sinks": 2}
+    disp = [s for s in spans if s["stage"] == "svc.dispatch"]
+    assert [s["aux"] for s in disp] == [4, 4]
+    for d in disp:
+        mine = {s["stage"] for s in spans if s["step"] == d["step"]}
+        assert mine == set(SVC)
 
 
 def test_param_step_spans_share_one_step():
@@ -235,25 +276,20 @@ def test_spans_land_on_the_wall_clock():
         anchor["wallNs"] - anchor["monotonicNs"])
 
 
-def test_arm_takes_the_ring_size_and_sample_zero_keeps_spans():
-    assert ring.status()["ringEvents"] == 8192
-    ring.arm(sample=0.0, ring_events=1000)
-    assert ring.status()["ringEvents"] == 1024
+def test_sample_zero_keeps_spans_in_a_fixed_ring():
+    size = ring.DEFAULT_RING_EVENTS
+    ring.arm(sample=0.0)
+    assert ring.status()["ringEvents"] == size
     ring.record(ring.CLIENT_IN, xid=77)  # sampled out
     ring.record(ring.BROWNOUT, aux=2)  # control plane: recorded
-    for _ in range(1100):
+    assert [e["stage"] for e in ring.events()] == ["brownout"]
+    for _ in range(size + 8):
         ring.end(ring.begin(ring.SVC_PREP, 1))
     st = ring.status()
-    assert st["totalEvents"] == 1024 and st["threads"][0]["dropped"] == 77
-    assert [e["stage"] for e in ring.events()] == []  # both wrapped out
-    assert len(ring.spans()) == 1024
-    ring.arm(sample=1.0)  # keeps the size
-    assert ring.status()["ringEvents"] == 1024
-    ring.arm(sample=1.0, ring_events=4096)
-    ring.record(ring.CLIENT_IN, xid=77)
-    st = ring.status()
-    assert st["ringEvents"] == 4096 and st["totalEvents"] == 1
-    assert [e["xid"] for e in ring.events()] == [77]
+    assert st["ringEvents"] == size and st["totalEvents"] == size
+    assert st["threads"][0]["dropped"] == 9
+    assert ring.events() == []  # wrapped out
+    assert len(ring.spans()) == size
 
 
 def test_an_exception_inside_a_span_leaves_the_stack_clean():
@@ -297,7 +333,7 @@ def test_a_failed_dispatch_or_frame_leaves_no_span_open(monkeypatch):
     spans = ring.spans()
     roots = [s for s in spans if s["parent"] == 0]
     assert [(s["stage"], s["aux"]) for s in roots] == [
-        ("svc.dispatch", 100), ("svc.dispatch", 612), ("svc.dispatch", 100),
+        ("svc.dispatch", 100), ("svc.burst", 612), ("svc.dispatch", 100),
         ("svc.materialize", 100), ("svc.dispatch", 100),
         ("svc.materialize", 100)]
     assert len({s["step"] for s in roots}) == 4
@@ -330,6 +366,13 @@ def test_operator_documents_carry_step_spans_and_the_anchor(tmp_path):
     assert out["clockAnchor"] == anchor
     assert out["stepSpans"] == doc["stepSpans"]
     assert out["completeness"]["spans"] == 1
+    # ``limit`` bounds the step spans too: the newest steps only
+    svc.dispatch_batch_arrays(_pull(60))()
+    assert len({s["step"] for s in ring.spans()}) == 2
+    out = H.cmd_cluster_server_trace({"action": "spans", "limit": "1"}, "")
+    assert sorted(s["stage"] for s in out["stepSpans"]) == sorted(SVC)
+    assert {s["aux"] for s in out["stepSpans"]
+            if s["stage"] == "svc.dispatch"} == {60}
 
 
 def test_no_device_boundary_stages_remain():
