@@ -936,8 +936,9 @@ def phase_param_service(torch, dev):
 def param_call_kernels(torch, sketch, svc, mc, stream):
     """CUDA kernels a ``request_params_token`` call launches, by name, from
     a ``torch.profiler`` trace of ``stream``'s calls: the param kernel's
-    (``csrc/<sketch>.cu``) must be exactly one a call; the torch ops around
-    it (host-to-device copies, the slim twin, the verdict) are counted
+    (``csrc/<sketch>.cu``) must be exactly one a call; the operations around
+    it (the staging copy, the verdict read and, for SALSA, the slim twin's
+    torch ops; count-min carries the twin in its launch) are counted
     apart."""
     from sentinel_tpu_torch.core import clock
     from torch.profiler import ProfilerActivity, profile
@@ -970,7 +971,7 @@ def param_call_kernels(torch, sketch, svc, mc, stream):
                torch_kernels_a_call=sum(others.values()) / calls)
     log(f"param service {sketch}: {calls} profiled calls, kernels of "
         f"csrc/{sketch}.cu a call {per_call}; other CUDA kernels a call "
-        f"(torch ops: copies, slim twin, verdict) "
+        f"(copies; SALSA's slim twin) "
         f"{out['torch_kernels_a_call']:.2f}")
     return out
 

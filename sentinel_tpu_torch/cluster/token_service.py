@@ -98,6 +98,7 @@ from sentinel_tpu_torch.engine.param import (
     make_param_state,
     param_decide,
     resolve_param_impl,
+    stage_rows,
 )
 from sentinel_tpu_torch.engine.outcome import outcome_step_donating
 from sentinel_tpu_torch.engine.rules import (
@@ -833,29 +834,17 @@ class DefaultTokenService(TokenService):
                         ws, table, stacked, now
                     )
             # the param step at request_params_token's smallest padded
-            # shape, on a throwaway sketch (nothing valid)
+            # shape, staged as it stages a request, on a throwaway sketch
+            # (nothing valid)
             pc = self.param_config
-            n_pad = 8
-            idx = hash_indices(np.zeros(1, np.int64), pc.depth,
-                               pc.cell_width)
-            idx_slim = None
-            if pc.slim_enabled:
-                from sentinel_tpu_torch.sketch.slim import slim_indices
-
-                si = slim_indices(pc, np.zeros(1, np.int64))
-                idx_slim = self._dev(np.broadcast_to(si, (n_pad, si.shape[1])))
-            dev = self.device
-            param_decide(
-                pc,
-                make_param_state(pc, device=dev),
-                torch.zeros((n_pad,), dtype=torch.int32, device=dev),
-                self._dev(np.broadcast_to(idx, (n_pad, idx.shape[1]))),
-                torch.zeros((n_pad,), dtype=torch.int32, device=dev),
-                torch.zeros((n_pad,), dtype=torch.float32, device=dev),
-                torch.zeros((n_pad,), dtype=torch.bool, device=dev),
-                now,
-                idx_slim=idx_slim,
-            )
+            rows = stage_rows(
+                0, 0, np.zeros((0, pc.depth), np.int32),
+                np.zeros(0, np.float32),
+                (np.zeros((0, pc.slim_depth), np.int32) if pc.slim_enabled
+                 else None),
+                8, self.device)
+            param_decide(pc, make_param_state(pc, device=self.device),
+                         *rows[:5], now, idx_slim=rows.idx_slim)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
 
@@ -1337,7 +1326,9 @@ class DefaultTokenService(TokenService):
         if admit is None:
             return TokenResult(TokenStatus.NO_RULE_EXISTS)
         sp = _TR.begin(_TR.PARAM_SYNC, 0, step) if _TR.ARMED else None
-        ok = bool(admit.all())  # the verdict read: waits for the step
+        # the verdict read, one copy of the request's admit bytes: waits for
+        # the step
+        ok = bool(admit.cpu().numpy().all())
         if sp is not None:
             _TR.end(sp)
         return TokenResult(TokenStatus.OK if ok else TokenStatus.BLOCKED)
@@ -1361,38 +1352,23 @@ class DefaultTokenService(TokenService):
             n = hashes.shape[0]
             # pad to a power of two >= 8, the reference's compiled shapes
             n_pad = max(8, 1 << (n - 1).bit_length())
-            pad = n_pad - n
-            idx = np.pad(idx, ((0, pad), (0, 0)))
             idx_slim = None
             if pc.slim_enabled:
                 from sentinel_tpu_torch.sketch.slim import slim_indices
 
-                idx_slim = self._dev(np.pad(slim_indices(pc, hashes),
-                                            ((0, pad), (0, 0))))
+                idx_slim = slim_indices(pc, hashes)
             thresholds = np.array(
                 [items.get(int(h), count) for h in hashes], dtype=np.float32
             )
-            thresholds = np.pad(thresholds, (0, pad))
-            valid = np.zeros(n_pad, dtype=bool)
-            valid[:n] = True
             now = self._engine_now()
-            dev = self.device
             if sp is not None:
                 _TR.end(sp, n)
             lp = (_TR.begin(_TR.PARAM_LAUNCH, n_pad, step) if _TR.ARMED
                   else None)
-            _, admit, _est = param_decide(
-                pc,
-                self._param_state,
-                torch.full((n_pad,), slot, dtype=torch.int32, device=dev),
-                self._dev(idx),
-                torch.full((n_pad,), int(acquire), dtype=torch.int32,
-                           device=dev),
-                self._dev(thresholds),
-                self._dev(valid),
-                now,
-                idx_slim=idx_slim,
-            )
+            rows = stage_rows(slot, int(acquire), idx, thresholds, idx_slim,
+                              n_pad, self.device)
+            _, admit, _est = param_decide(pc, self._param_state, *rows[:5],
+                                          now, idx_slim=rows.idx_slim)
             if lp is not None:
                 _TR.end(lp)
             if self._dirty is not None:

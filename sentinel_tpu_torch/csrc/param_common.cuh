@@ -138,27 +138,33 @@ __device__ __forceinline__ int wrap_sub(int a, int b) {
 // 32-bit words) and the window mask from the post-roll starts (bucket `cur`
 // holds cur_start; age = now - start wraps like the reference's int32).
 // Ends with a barrier.
+// Ring slot `cur` of a [P, B, per_bucket] plane of 32-bit words zeroed by
+// the whole block (no barrier).
+__device__ void zero_bucket(uint32_t* words, int P, int B,
+                            long long per_bucket, int cur) {
+  const bool aligned = (reinterpret_cast<uintptr_t>(words) & 15) == 0;
+  if ((per_bucket & 3) == 0 && aligned) {
+    const long long quads = per_bucket >> 2;
+    for (int p = 0; p < P; ++p) {
+      uint4* q = reinterpret_cast<uint4*>(
+          words + ((long long)p * B + cur) * per_bucket);
+      for (long long w = threadIdx.x; w < quads; w += blockDim.x)
+        q[w] = make_uint4(0u, 0u, 0u, 0u);
+    }
+  } else {
+    for (int p = 0; p < P; ++p) {
+      uint32_t* q = words + ((long long)p * B + cur) * per_bucket;
+      for (long long w = threadIdx.x; w < per_bucket; w += blockDim.x)
+        q[w] = 0u;
+    }
+  }
+}
+
 __device__ void begin(Smem& sm, uint32_t* words, const int32_t* starts,
                       int P, int B, long long per_bucket, int now, int cur,
                       int cur_start, int interval_ms) {
-  if (starts[cur] != cur_start) {  // the same value in every thread
-    const bool aligned = (reinterpret_cast<uintptr_t>(words) & 15) == 0;
-    if ((per_bucket & 3) == 0 && aligned) {
-      const long long quads = per_bucket >> 2;
-      for (int p = 0; p < P; ++p) {
-        uint4* q = reinterpret_cast<uint4*>(
-            words + ((long long)p * B + cur) * per_bucket);
-        for (long long w = threadIdx.x; w < quads; w += blockDim.x)
-          q[w] = make_uint4(0u, 0u, 0u, 0u);
-      }
-    } else {
-      for (int p = 0; p < P; ++p) {
-        uint32_t* q = words + ((long long)p * B + cur) * per_bucket;
-        for (long long w = threadIdx.x; w < per_bucket; w += blockDim.x)
-          q[w] = 0u;
-      }
-    }
-  }
+  if (starts[cur] != cur_start)  // the same value in every thread
+    zero_bucket(words, P, B, per_bucket, cur);
   for (int b = threadIdx.x; b < B; b += blockDim.x) {
     const int start = (b == cur) ? cur_start : starts[b];
     const int age = wrap_sub(now, start);

@@ -23,6 +23,12 @@ Port notes:
   core; ``"auto"`` takes the kernel on CUDA tensors and the torch ops
   elsewhere. The reference's timing probe is not carried over: the kernel
   is chosen by the device, never because it failed.
+- Where the slim twin runs: for the count-min kernel on CUDA tensors, inside
+  its one launch (``csrc/cms.cu``); everywhere else (CPU tensors, the
+  torch-ops core, SALSA) as ``sketch/slim.py``'s torch-op pre- and
+  post-step around the core, which the fused launch is held against.
+- :func:`stage_rows` lays a request's padded columns out in one block, so
+  that they reach the card in one copy.
 - ``now`` is a host ``int`` (engine ms).
 """
 
@@ -159,11 +165,12 @@ def param_decide(
     """``-> (state, admit [N] bool, estimate [N] int32)``; ``state`` is
     updated in place.
 
-    The slim twin is composed around whichever core runs, as in the
-    reference: roll the slim ring and take the slim estimate over
-    delta-authoritative buckets, run the core with the threshold reduced by
-    it, then scatter-max the post-update fat estimate into the twin.
-    ``idx_slim=None`` skips the twin.
+    The slim twin, as in the reference: roll the slim ring and take the
+    slim estimate over delta-authoritative buckets, run the core with the
+    threshold reduced by it, then scatter-max the post-update fat estimate
+    into the twin. The count-min kernel on CUDA tensors does all of it in
+    its one launch; every other core has the twin's torch-op steps composed
+    around it. ``idx_slim=None`` skips the twin.
     """
     now = int(now)
     core = _core(config, resolve_param_impl(config.impl,
@@ -171,6 +178,15 @@ def param_decide(
     if idx_slim is None or not config.slim_enabled:
         return core(config, state, rule_slot, idx, acquire, threshold,
                     valid, now)
+    if core is _param_decide_kernel and state.counts.device.type == "cuda":
+        from sentinel_tpu_torch.ops.cms_cuda import cms_decide_update
+
+        admit, est = cms_decide_update(
+            state.counts, state.starts, rule_slot, idx, acquire, threshold,
+            valid, now, config.bucket_ms,
+            slim=(state.slim, state.slim_auth, idx_slim),
+        )
+        return state, admit, est
     from sentinel_tpu_torch.sketch.slim import slim_poststep, slim_prestep
 
     est_slim = slim_prestep(config, state, rule_slot, idx_slim, now)
@@ -204,3 +220,64 @@ def _param_decide_kernel(config, state, rule_slot, idx, acquire, threshold,
         valid, now, config.bucket_ms,
     )
     return state, admit, est
+
+
+class ParamRows(NamedTuple):
+    """One request's columns, padded to ``n_pad`` rows: views into one
+    block on the device (:func:`stage_rows`)."""
+
+    rule_slot: torch.Tensor  # [n_pad] int32
+    idx: torch.Tensor  # [n_pad, depth] int32
+    acquire: torch.Tensor  # [n_pad] int32
+    threshold: torch.Tensor  # [n_pad] float32
+    valid: torch.Tensor  # [n_pad] bool
+    idx_slim: Optional[torch.Tensor]  # [n_pad, slim_depth] int32, or None
+
+
+def stage_rows(slot: int, acquire: int, idx: np.ndarray,
+               thresholds: np.ndarray, idx_slim: Optional[np.ndarray],
+               n_pad: int, device) -> ParamRows:
+    """The columns of one request of ``n = idx.shape[0]`` values, padded to
+    ``n_pad`` rows (zero indices and thresholds, not valid; the slot and
+    acquire on every row), as views into one int32 block at fixed offsets:
+    slot, idx, acquire, threshold, valid (bytes), idx_slim.
+
+    To a card the block is filled in pinned memory from PyTorch's caching
+    host allocator, which keeps it until its copy has run, and goes over in
+    one copy that does not wait for the stream; on the CPU it is the block
+    itself."""
+    n, D = idx.shape
+    Ds = 0 if idx_slim is None else idx_slim.shape[1]
+    o_idx = n_pad
+    o_acq = o_idx + n_pad * D
+    o_thr = o_acq + n_pad
+    o_valid = o_thr + n_pad
+    o_slim = o_valid + (n_pad + 3) // 4
+    cuda = torch.device(device).type == "cuda"
+    host = torch.empty((o_slim + n_pad * Ds,), dtype=torch.int32,
+                       pin_memory=cuda)
+    h = host.numpy()
+    h[:n_pad] = slot
+    cells = h[o_idx:o_acq].reshape(n_pad, D)
+    cells[:n] = idx
+    cells[n:] = 0
+    h[o_acq:o_thr] = acquire
+    thr = h[o_thr:o_valid].view(np.float32)
+    thr[:n] = thresholds
+    thr[n:] = 0.0
+    flags = h[o_valid:o_slim].view(np.uint8)
+    flags[:n] = 1
+    flags[n:] = 0
+    if Ds:
+        slim = h[o_slim:].reshape(n_pad, Ds)
+        slim[:n] = idx_slim
+        slim[n:] = 0
+    block = host.to(device, non_blocking=True) if cuda else host
+    return ParamRows(
+        block[:n_pad],
+        block[o_idx:o_acq].view(n_pad, D),
+        block[o_acq:o_thr],
+        block[o_thr:o_valid].view(torch.float32),
+        block[o_valid:o_slim].view(torch.uint8)[:n_pad].view(torch.bool),
+        block[o_slim:].view(n_pad, Ds) if Ds else None,
+    )

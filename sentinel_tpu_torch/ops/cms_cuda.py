@@ -3,8 +3,12 @@
 
 - :func:`cms_decide_update` — the kernel's wrapper. On CUDA tensors it
   launches ``csrc/cms.cu`` (one launch of one block, the roll included) and
-  adds one to ``LAUNCHES["cms_decide_update"]``; on CPU tensors it runs
-  :func:`cms_decide_update_plain`. It never falls back from the kernel.
+  adds one to ``LAUNCHES["cms_decide_update"]``; given the slim twin
+  (``slim=``), the same launch runs the twin's pre- and post-step
+  (``sketch/slim.py``) and adds one to ``LAUNCHES["cms_slim_fused"]`` too.
+  On CPU tensors it runs :func:`cms_decide_update_plain` (the twin there is
+  the torch-op composition of ``engine/param.py::param_decide``). It never
+  falls back from the kernel.
 - :func:`cms_decide_update_plain` — the same function in torch ops, op for
   op the reference's XLA core (``engine/param.py::_param_decide_jax``). It
   is the port's torch-ops core (``ParamConfig(impl="jax")``), the CPU path,
@@ -23,7 +27,7 @@ are shared with the SALSA kernel's plain version (``ops/salsa_cuda.py``).
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -38,7 +42,7 @@ REFINE_ITERS = 3
 KEY_MIX = -1640531527
 
 # kernel launches on CUDA tensors, by wrapper; CPU calls do not count
-LAUNCHES = {"cms_decide_update": 0}
+LAUNCHES = {"cms_decide_update": 0, "cms_slim_fused": 0}
 
 
 def ring(now: int, bucket_ms: int, n_buckets: int) -> Tuple[int, int]:
@@ -140,28 +144,36 @@ _C_ARGTYPES = (
     + [ctypes.c_int] * 4  # P B D W
     + [ctypes.c_void_p] * 5  # slot idx acquire threshold valid
     + [ctypes.c_int] * 5  # N now cur cur_start interval_ms
-    + [ctypes.c_void_p] * 3  # admit est work
+    + [ctypes.c_void_p] * 2  # admit est
+    + [ctypes.c_void_p] * 3  # slim slim_auth idx_slim
+    + [ctypes.c_int] * 2  # Ds Ws
+    + [ctypes.c_void_p]  # work
     + [ctypes.c_longlong, ctypes.c_void_p]  # work words, stream
 )
 
 
-def load_param_kernel(name: str, entry: str, argtypes):
-    """``(kernel entry, workspace words of N rows)`` of ``csrc/<name>.cu``,
-    typed for ctypes."""
+def load_param_kernel(name: str, entry: str, argtypes,
+                      words_entry: str = "sentinel_param_work_words",
+                      words_argtypes=(ctypes.c_int,)):
+    """``(kernel entry, workspace words)`` of ``csrc/<name>.cu``, typed for
+    ctypes."""
     from sentinel_tpu_torch.ops import _build
 
     lib = _build.load(name)
-    fn, words = getattr(lib, entry), lib.sentinel_param_work_words
+    fn, words = getattr(lib, entry), getattr(lib, words_entry)
     if fn.argtypes is None:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        words.argtypes = [ctypes.c_int]
+        words.argtypes = list(words_argtypes)
         words.restype = ctypes.c_longlong
     return fn, words
 
 
 def _kernel_lib():
-    return load_param_kernel("cms", "sentinel_cms_decide", _C_ARGTYPES)
+    """``(entry, words(N, twin))``."""
+    return load_param_kernel("cms", "sentinel_cms_decide", _C_ARGTYPES,
+                             "sentinel_cms_work_words",
+                             (ctypes.c_int, ctypes.c_int))
 
 
 def check_rows(fn: str, rule_slot, idx, acquire, threshold, valid, D,
@@ -188,19 +200,29 @@ def cms_decide_update(
     valid: torch.Tensor,
     now: int,
     bucket_ms: int,
+    slim: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernel's wrapper: ``counts`` and ``starts`` are updated in place;
     returns ``(admit [N] bool, estimate [N] int32)``.
 
+    ``slim = (cells [P, B, Ds, Ws] int32, auth [B] bool, idx_slim [N, Ds]
+    int32)``: the slim twin, updated in place by the same launch, as
+    ``slim_prestep``, this step on the lowered thresholds, then
+    ``slim_poststep`` would (``sketch/slim.py``); the estimate is then fat +
+    slim. CUDA tensors only.
+
     CPU tensors run :func:`cms_decide_update_plain`. CUDA tensors launch
     the kernel (after checking device, dtype, shape and contiguity) or
-    raise. Rows whose slot or cell index lies outside the sketch are not
-    live and estimate 0 on the card (the plain version raises on them; the
-    reference's two cores differ from each other there, and its callers
-    never pass such rows)."""
+    raise. Rows whose slot, cell index or slim cell index lies outside the
+    sketch are not live and estimate 0 on the card (the plain version
+    raises on them; the reference's two cores differ from each other there,
+    and its callers never pass such rows)."""
     now = int(now)
     device = counts.device
     if device.type == "cpu":
+        if slim is not None:
+            raise ValueError("cms_decide_update: the slim twin rides the "
+                             "kernel on CUDA tensors only")
         return cms_decide_update_plain(counts, starts, rule_slot, idx,
                                        acquire, threshold, valid, now,
                                        bucket_ms)
@@ -216,20 +238,34 @@ def cms_decide_update(
     check(fn_name, "starts", starts, torch.int32, (B,), device)
     N = check_rows(fn_name, rule_slot, idx, acquire, threshold, valid, D,
                    device)
+    twin, Ds, Ws = (0, 0, 0), 0, 0
+    if slim is not None:
+        cells, auth, idx_slim = slim
+        if cells.dim() != 4 or cells.shape[:2] != (P, B):
+            raise ValueError(f"{fn_name}: slim must be [P, B, Ds, Ws]")
+        Ds, Ws = cells.shape[2:]
+        if Ws < 1:
+            raise ValueError(f"{fn_name}: an empty slim twin")
+        check(fn_name, "slim", cells, torch.int32, (P, B, Ds, Ws), device)
+        check(fn_name, "slim_auth", auth, torch.bool, (B,), device)
+        check(fn_name, "idx_slim", idx_slim, torch.int32, (N, Ds), device)
+        twin = (cells.data_ptr(), auth.data_ptr(), idx_slim.data_ptr())
     cur, cur_start = ring(now, bucket_ms, B)
     admit = torch.empty((N,), dtype=torch.bool, device=device)
     est = torch.empty((N,), dtype=torch.int32, device=device)
     fn, work_words = _kernel_lib()
-    words = work_words(N)
+    words = work_words(N, int(Ws > 0))
     work = torch.empty((words,), dtype=torch.int32, device=device)
     err = fn(
         counts.data_ptr(), starts.data_ptr(), P, B, D, W,
         rule_slot.data_ptr(), idx.data_ptr(), acquire.data_ptr(),
         threshold.data_ptr(), valid.data_ptr(),
         N, now, cur, cur_start, bucket_ms * B,
-        admit.data_ptr(), est.data_ptr(), work.data_ptr(), words,
-        stream_of(device),
+        admit.data_ptr(), est.data_ptr(), *twin, Ds, Ws, work.data_ptr(),
+        words, stream_of(device),
     )
     raise_on(fn_name, err)
     LAUNCHES[fn_name] += 1
+    if Ws:
+        LAUNCHES["cms_slim_fused"] += 1
     return admit, est

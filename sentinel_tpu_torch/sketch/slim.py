@@ -12,6 +12,12 @@ A standby flags the buckets whose slim rows arrived by delta
 (``ParamState.slim_auth``) and serves ``fat + slim(auth buckets)``; on a
 primary no flag is set and the slim estimate is 0.
 
+Where they run: :func:`slim_prestep` and :func:`slim_poststep` are the twin
+in torch ops, composed around the core by ``engine/param.py::param_decide``
+on the CPU, for the torch-ops core and for SALSA. On the card the count-min
+kernel does the same work in its one launch (``csrc/cms.cu``), held bit for
+bit against these two steps around ``cms_decide_update_plain``.
+
 Both steps update the state in place.
 """
 

@@ -40,9 +40,9 @@ The step spans (``aux`` in parens):
 - ``door.control``: ``NativeTokenServer._handle_control_item`` for a
   control frame, taken to its reply handed to the door (message type);
   a PARAM_FLOW frame's ``param.prep`` (the lock taken to the call of
-  ``param_decide``; values), ``param.launch`` (that call, uploads
-  included; padded values) and ``param.sync`` (the verdict read of
-  ``request_params_token``; 0) are its children.
+  ``param_decide``; values), ``param.launch`` (the upload of the
+  request's staging block and that call; padded values) and ``param.sync``
+  (the verdict read of ``request_params_token``; 0) are its children.
 
 Rows carry ``time.monotonic_ns()``. ``arm`` takes one (monotonic, wall)
 anchor pair, so :func:`spans` also returns them on the clock of
@@ -98,7 +98,7 @@ SVC_D2H = 24          # the verdict reads back to the host (rows)
 SVC_SINKS = 25        # the served batch's host sinks (rows)
 DOOR_CONTROL = 26     # one control-lane frame, taken to reply (message type)
 PARAM_PREP = 27       # the param step's host prep, under the lock (values)
-PARAM_LAUNCH = 28     # the param step's uploads and launches (padded values)
+PARAM_LAUNCH = 28     # the param step's upload and launch (padded values)
 PARAM_SYNC = 29       # the param verdict read (0)
 SVC_BURST = 30        # an oversized burst's dispatches (rows)
 # the stages whose spans enclose others: on the thread's stack while open

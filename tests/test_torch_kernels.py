@@ -165,6 +165,106 @@ def test_param_kernel_matches_plain(cuda, sketch, N):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("N", [8, 64, 1024])
+@pytest.mark.parametrize("twin", ["primary", "standby", "off"])
+def test_param_kernel_carries_the_slim_twin(cuda, twin, N):
+    """The count-min launch with the slim twin inside, bitwise against the
+    torch-op composition around the plain core on copies of one state:
+    a primary (no bucket authoritative), a standby (one bucket flagged, then
+    rolled stale: its slim column zeroed, its flag dropped), the twin off
+    (``slim_width=0``: the same kernel's plain path). Every step has rows
+    without a rule, padded rows and repeated values."""
+    cfg = ParamConfig(slim_width=0) if twin == "off" else ParamConfig()
+    batches, nows = PC.kernel_batches(cfg, N, seed=N)
+    before = dict(cms_cuda.LAUNCHES)
+    r = PC.check_param_steps(cfg, PC.twin_state(cfg, twin, cuda, seed=N),
+                             PC.with_twin(cfg, batches), nows,
+                             fns=PC.twin_fns(cfg))
+    torch.cuda.synchronize()
+    assert not r.mismatches, r.mismatches[:10]
+    assert r.max_abs_err == 0.0
+    assert cms_cuda.LAUNCHES["cms_decide_update"] - \
+        before["cms_decide_update"] == len(nows)
+    assert cms_cuda.LAUNCHES["cms_slim_fused"] - before["cms_slim_fused"] \
+        == (0 if twin == "off" else len(nows))
+    want = set(PC.COVERAGE) | set(PC.TWIN_COVERAGE[twin])
+    assert want <= r.reached, want - r.reached
+
+
+def _param_service(device, **param):
+    from sentinel_tpu_torch.cluster.token_service import (
+        ClusterParamFlowRule,
+        DefaultTokenService,
+    )
+
+    svc = DefaultTokenService(
+        EngineConfig(max_flows=64, max_namespaces=4, batch_size=256),
+        param_config=ParamConfig(max_param_rules=16, width=128, **param),
+        device=device)
+    svc.load_param_rules([ClusterParamFlowRule(7, 50.0)])
+    return svc
+
+
+def _device_ops(fn):
+    """The names of the device operations ``fn()`` runs (its result
+    synchronised before the trace ends)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name() for e in prof.profiler.kineto_results.events()
+            if str(e.device_type()) == "DeviceType.CUDA"]
+
+
+def _count_slim_steps(monkeypatch, fail: bool):
+    from sentinel_tpu_torch.sketch import slim
+
+    calls = []
+    for name in ("slim_prestep", "slim_poststep"):
+        orig = getattr(slim, name)
+
+        def step(*a, _orig=orig, _name=name, **k):
+            if fail:
+                raise AssertionError(f"{_name} ran as torch ops")
+            calls.append(_name)
+            return _orig(*a, **k)
+
+        monkeypatch.setattr(slim, name, step)
+    return calls
+
+
+@pytest.mark.gpu
+def test_param_request_is_one_upload_one_launch_one_read(cuda, monkeypatch):
+    svc = _param_service(cuda)
+    svc.request_params_token(7, 1, [11, 12, 13])  # builds, warms
+    torch.cuda.synchronize()
+    _count_slim_steps(monkeypatch, fail=True)
+    before = dict(cms_cuda.LAUNCHES)
+    out = []
+    ops = _device_ops(
+        lambda: out.append(svc.request_params_token(7, 2, [11, 14])))
+    assert int(out[0].status) == 0
+    assert len(ops) == 3, ops
+    assert sum("cms_decide_kernel" in n for n in ops) == 1, ops
+    assert sum("HtoD" in n for n in ops) == 1, ops
+    assert sum("DtoH" in n for n in ops) == 1, ops
+    for name in ("cms_decide_update", "cms_slim_fused"):
+        assert cms_cuda.LAUNCHES[name] - before[name] == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("param", [dict(sketch="salsa"), dict(impl="jax")])
+def test_salsa_and_torch_ops_keep_the_composition(cuda, monkeypatch, param):
+    svc = _param_service(cuda, **param)
+    calls = _count_slim_steps(monkeypatch, fail=False)
+    before = cms_cuda.LAUNCHES["cms_slim_fused"]
+    assert int(svc.request_params_token(7, 1, [11, 12]).status) == 0
+    assert calls == ["slim_prestep", "slim_poststep"]
+    assert cms_cuda.LAUNCHES["cms_slim_fused"] == before
+
+
+@pytest.mark.gpu
 def test_param_wrappers_reject_bad_inputs(cuda):
     cfg = ParamConfig(max_param_rules=8, width=64)
     st = make_param_state(cfg, device=cuda)
@@ -404,3 +504,130 @@ def test_untouched_pair_check_has_teeth():
     free[(cols["idx"][:, 0].long() // 2) * 2 + 1] = False
     stray[0, 0, int(torch.nonzero(free)[0])] += 1
     assert not PC.untouched_pairs_equal(plane0, stray, cols, admit)
+
+
+@pytest.mark.parametrize("twin", ["primary", "standby", "off"])
+def test_twin_check_runs_on_the_cpu(twin):
+    """The twin's check on the CPU, where both sides compose the torch-op
+    steps (nothing fused, nothing counted): its states, indices and
+    coverage reach every case the card's test asks for."""
+    cfg = ParamConfig(max_param_rules=16, width=128,
+                      **({"slim_width": 0} if twin == "off" else {}))
+    batches, nows = PC.kernel_batches(cfg, 64, seed=5)
+    before = dict(cms_cuda.LAUNCHES)
+    r = PC.check_param_steps(cfg, PC.twin_state(cfg, twin, "cpu"),
+                             PC.with_twin(cfg, batches), nows,
+                             fns=PC.twin_fns(cfg))
+    assert not r.mismatches and r.max_abs_err == 0.0
+    assert cms_cuda.LAUNCHES == before
+    want = set(PC.COVERAGE) | set(PC.TWIN_COVERAGE[twin])
+    assert want <= r.reached, want - r.reached
+
+
+def _old_columns(pc, slot, count, items, acquire, hashes):
+    """A request's columns as the service built them before they shared
+    one staging block: each padded on its own."""
+    from sentinel_tpu_torch.engine.param import hash_indices
+    from sentinel_tpu_torch.sketch.slim import slim_indices
+
+    hashes = np.asarray(hashes, dtype=np.int64)
+    n = hashes.shape[0]
+    n_pad = max(8, 1 << (n - 1).bit_length())
+    pad = n_pad - n
+    idx = np.pad(hash_indices(hashes, pc.depth, pc.cell_width),
+                 ((0, pad), (0, 0)))
+    thr = np.pad(np.array([items.get(int(h), count) for h in hashes],
+                          dtype=np.float32), (0, pad))
+    valid = np.zeros(n_pad, dtype=bool)
+    valid[:n] = True
+    idx_slim = (torch.as_tensor(np.pad(slim_indices(pc, hashes),
+                                       ((0, pad), (0, 0))))
+                if pc.slim_enabled else None)
+    return (torch.full((n_pad,), slot, dtype=torch.int32),
+            torch.as_tensor(idx),
+            torch.full((n_pad,), acquire, dtype=torch.int32),
+            torch.as_tensor(thr), torch.as_tensor(valid), idx_slim)
+
+
+@pytest.mark.parametrize("slim_width", [256, 0])
+@pytest.mark.parametrize("n", [1, 2, 3, 4])
+def test_staging_block_views_equal_the_padded_columns(n, slim_width):
+    from sentinel_tpu_torch.engine.param import stage_rows
+    from sentinel_tpu_torch.sketch.slim import slim_indices
+    from sentinel_tpu_torch.engine.param import hash_indices
+
+    pc = ParamConfig(max_param_rules=16, width=128, slim_width=slim_width)
+    rng = np.random.default_rng(n)
+    hashes = rng.integers(-2**62, 2**62, n)
+    items = {int(hashes[0]): 3.0}
+    old = _old_columns(pc, 5, 50.0, items, 2, hashes)
+    rows = stage_rows(
+        5, 2, hash_indices(hashes, pc.depth, pc.cell_width),
+        np.array([items.get(int(h), 50.0) for h in hashes], np.float32),
+        slim_indices(pc, hashes) if pc.slim_enabled else None, 8, "cpu")
+    assert len(rows) == len(old)
+    for got, want, name in zip(rows, old, rows._fields):
+        if want is None:
+            assert got is None, name
+            continue
+        assert got.dtype == want.dtype and torch.equal(got, want), name
+    # views into one block
+    base = rows.rule_slot.untyped_storage().data_ptr()
+    assert all(t.untyped_storage().data_ptr() == base
+               for t in rows if t is not None)
+
+
+def test_cpu_service_verdicts_and_state_stay_as_they_were(monkeypatch):
+    """A fixed request stream through the CPU service's staged step against
+    the same stream built column by column as before, through
+    ``param_decide`` on a mirror state: every verdict and every state leaf
+    equal."""
+    from sentinel_tpu_torch.cluster.token_service import (
+        ClusterParamFlowRule,
+        DefaultTokenService,
+    )
+    from sentinel_tpu_torch.core import clock as t_clock
+    from sentinel_tpu_torch.engine.decide import TokenStatus
+    from sentinel_tpu_torch.engine.param import param_decide
+
+    clock = t_clock.ManualClock(1_700_000_000_000)
+    prev = t_clock.set_clock(clock)
+    try:
+        pc = ParamConfig(max_param_rules=16, width=128)
+        svc = DefaultTokenService(
+            EngineConfig(max_flows=16, max_namespaces=4, batch_size=16),
+            pc, device="cpu")
+        rng = np.random.default_rng(31)
+        specs = PC.service_rule_specs(12, rng)
+        svc.load_param_rules([ClusterParamFlowRule(
+            s.flow_id, s.count, s.item_thresholds) for s in specs])
+        mirror = PC.clone_param_state(svc._param_state)
+        nows = []
+        orig = svc._engine_now
+
+        def engine_now():
+            nows.append(orig())
+            return nows[-1]
+
+        monkeypatch.setattr(svc, "_engine_now", engine_now)
+        statuses = set()
+        for i, (fid, acq, hashes) in enumerate(
+                PC.service_stream(specs, rng, 300)):
+            slot, count, items = svc._param_rules[fid]
+            got = svc.request_params_token(fid, acq, hashes)
+            *cols, idx_slim = _old_columns(pc, slot, count, items, acq,
+                                           hashes)
+            _, admit, _ = param_decide(pc, mirror, *cols, nows[-1],
+                                       idx_slim=idx_slim)
+            want = int(TokenStatus.OK if bool(admit[:len(hashes)].all())
+                       else TokenStatus.BLOCKED)
+            assert int(got.status) == want, f"request {i}"
+            statuses.add(want)
+            # bursts of 100 within one bucket, then into a later one
+            clock.advance(1 if (i + 1) % 100 else 400)
+        assert statuses == {int(TokenStatus.OK), int(TokenStatus.BLOCKED)}
+        for f, x, y in zip(mirror._fields, svc._param_state, mirror):
+            assert torch.equal(x, y), f
+        assert len(nows) == 300
+    finally:
+        t_clock.set_clock(prev)

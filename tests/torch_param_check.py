@@ -23,9 +23,14 @@ Everything is made from a ``numpy.random.Generator``:
 
 :func:`check_param_steps` steps a kernel and its plain version over the
 batches from two copies of one state and compares admit, estimate and
-every state leaf with ``torch.equal``; for SALSA it also holds every pair
-of the current plane that no admitted row addressed to its bits before the
-step, on both sides, and the kernel's add-sum buffer to all zero. It reports
+every state leaf with ``torch.equal`` (:func:`twin_fns` gives the pair with
+the slim twin: ``param_decide``'s count-min launch against the torch-op
+composition ``slim_prestep``, ``cms_decide_update_plain``,
+``slim_poststep``; :func:`with_twin` adds the batches' slim indices and
+:func:`twin_state` a primary's or a standby's state); for SALSA it also
+holds every pair of the current plane that no admitted row addressed to its
+bits before the step, on both sides, and the kernel's add-sum buffer to all
+zero. It reports
 which of :data:`COVERAGE` the steps reached. :data:`STEP_OFFSETS_MS` (500 ms buckets, a 2-bucket ring)
 spans 2.7 s: same-bucket steps, rolls onto buckets that hold counts, and
 steps that must mask an aged bucket that holds counts.
@@ -308,6 +313,35 @@ def untouched_pairs_equal(plane0: torch.Tensor, plane1: torch.Tensor,
     return torch.equal(pairs0[keep], pairs1[keep])
 
 
+def _twin_coverage(config: ParamConfig, before: ParamState,
+                   cols: Dict[str, np.ndarray], now: int, stale: bool,
+                   after: ParamState) -> set:
+    """Which of :data:`TWIN_COVERAGE` one step reached."""
+    cur, cur_start = cms_cuda.ring(now, config.bucket_ms, config.n_buckets)
+    auth = before.slim_auth.cpu().numpy().copy()
+    slim = before.slim.cpu().numpy().copy()
+    reached = set()
+    if stale:
+        if auth[cur] and slim[:, cur].any():
+            reached.add("rolled_authoritative_twin")
+        auth[cur] = False
+        slim[:, cur] = 0
+    starts = before.starts.cpu().numpy().astype(np.int64)
+    starts[cur] = cur_start
+    age = now - starts
+    use = (age >= 0) & (age < config.interval_ms) & auth  # [B]
+    slot, live = cols["rule_slot"], cols["valid"] & (cols["rule_slot"] >= 0)
+    safe = np.maximum(slot, 0).astype(np.int64)[:, None]
+    ds = np.arange(config.slim_depth)[None, :]
+    sums = sum(slim[safe, b, ds, cols["idx_slim"]].astype(np.int64) * use[b]
+               for b in range(config.n_buckets))
+    if (live & (sums.min(axis=1) > 0)).any():
+        reached.add("slim_estimate_counted")
+    if (after.slim[:, cur].cpu().numpy() > slim[:, cur]).any():
+        reached.add("slim_cells_raised")
+    return reached
+
+
 def step_coverage(config: ParamConfig, before: ParamState,
                   cols: Dict[str, np.ndarray], now: int, admit: np.ndarray,
                   est: np.ndarray, after: ParamState) -> set:
@@ -337,6 +371,8 @@ def step_coverage(config: ParamConfig, before: ParamState,
         reached.add("padded_rows")
     if (valid & (slot < 0)).any():
         reached.add("no_rule_rows")
+    if "idx_slim" in cols:
+        reached |= _twin_coverage(config, before, cols, now, stale, after)
     if config.sketch == "salsa":
         if merges_after.sum() > before.merges.cpu().numpy().sum():
             reached.add("newly_merged")
@@ -370,10 +406,11 @@ def _compare(a, b):
 
 
 def check_param_steps(config: ParamConfig, state: ParamState, batches,
-                      nows) -> StepCheck:
-    """Step the kernel of ``config.sketch`` and its plain version over
-    ``batches`` (numpy columns) at ``nows`` from two copies of ``state``."""
-    kernel, plain = step_fns(config.sketch)
+                      nows, fns=None) -> StepCheck:
+    """Step the kernel of ``config.sketch`` and its plain version (or the
+    pair ``fns``) over ``batches`` (numpy columns) at ``nows`` from two
+    copies of ``state``."""
+    kernel, plain = fns or step_fns(config.sketch)
     st_k, st_p = clone_param_state(state), clone_param_state(state)
     dev = state.counts.device
     mismatches, max_err, reached = [], 0.0, set()
@@ -488,3 +525,88 @@ def service_stream(specs: List[ParamRuleSpec], rng: np.random.Generator,
         hs = value_hashes(np.full(k, fid), vals)
         out.append((fid, int(rng.integers(1, 4)), [int(h) for h in hs]))
     return out
+
+
+# what the twin's steps reach: on a primary (no bucket authoritative) the
+# twin is still raised; a standby's also counts it and rolls a flagged bucket
+TWIN_COVERAGE = {
+    "primary": ("slim_cells_raised",),
+    "standby": ("slim_cells_raised", "slim_estimate_counted",
+                "rolled_authoritative_twin"),
+    "off": (),
+}
+
+
+def with_twin(config: ParamConfig,
+              batches: List[Dict[str, np.ndarray]]) -> List[Dict]:
+    """The batches with their rows' slim cell indices (``idx_slim``), drawn
+    from a value hash of each row's lane-0 cell and slot, so rows on one
+    value share them; unchanged when the twin is off."""
+    from sentinel_tpu_torch.sketch.slim import slim_indices
+
+    if not config.slim_enabled:
+        return batches
+    out = []
+    for cols in batches:
+        h = (cols["idx"][:, 0].astype(np.int64) * 1_000_003
+             + cols["rule_slot"])
+        out.append(dict(cols, idx_slim=slim_indices(config, h)))
+    return out
+
+
+def twin_state(config: ParamConfig, kind: str, device,
+               seed: int = 0) -> ParamState:
+    """A zero state (``"primary"``, ``"off"``), or a standby's: both ring
+    buckets live at :data:`T0_MS`, counts and slim cells drawn, the slim
+    rows of bucket 1 (the first to roll) authoritative and bucket 0's not."""
+    from sentinel_tpu_torch.engine.param import make_param_state
+
+    st = make_param_state(config, device=device)
+    if kind != "standby":
+        return st
+    rng = np.random.default_rng(seed)
+    bms = config.bucket_ms
+    cur = (T0_MS // bms) % config.n_buckets
+    starts = np.array([T0_MS - T0_MS % bms - ((cur - b) % config.n_buckets)
+                       * bms for b in range(config.n_buckets)], np.int32)
+    st.starts.copy_(torch.as_tensor(starts))
+    st.counts.copy_(torch.as_tensor(
+        rng.integers(0, 40, tuple(st.counts.shape)).astype(np.int32)))
+    st.slim.copy_(torch.as_tensor(
+        rng.integers(0, 30, tuple(st.slim.shape)).astype(np.int32)))
+    st.slim_auth.copy_(torch.as_tensor(
+        np.arange(config.n_buckets) % 2 == 1))
+    return st
+
+
+def twin_fns(config: ParamConfig):
+    """``(fused, plain)`` for :func:`check_param_steps` with the slim twin:
+    ``param_decide`` through the count-min kernel (on the card the twin
+    rides its one launch) and the torch-op composition ``slim_prestep``,
+    ``cms_decide_update_plain``, ``slim_poststep``."""
+    from sentinel_tpu_torch.engine.param import param_decide
+    from sentinel_tpu_torch.sketch.slim import slim_poststep, slim_prestep
+
+    kcfg = config._replace(sketch="cms", impl="pallas")
+    names = ("rule_slot", "idx", "acquire", "threshold", "valid")
+
+    def fused(st, c, now, bms):
+        _, admit, est = param_decide(kcfg, st, *(c[k] for k in names), now,
+                                     idx_slim=c.get("idx_slim"))
+        return admit, est
+
+    def plain(st, c, now, bms):
+        if "idx_slim" not in c:
+            return cms_cuda.cms_decide_update_plain(
+                st.counts, st.starts, *(c[k] for k in names), now, bms)
+        est_slim = slim_prestep(config, st, c["rule_slot"], c["idx_slim"],
+                                now)
+        thr = c["threshold"] - est_slim.to(torch.float32)
+        admit, est = cms_cuda.cms_decide_update_plain(
+            st.counts, st.starts, c["rule_slot"], c["idx"], c["acquire"],
+            thr, c["valid"], now, bms)
+        slim_poststep(config, st, c["rule_slot"], c["idx"], c["idx_slim"],
+                      c["valid"], now)
+        return admit, est + est_slim
+
+    return fused, plain

@@ -76,8 +76,8 @@ PATCHES = (
      "               (long long)D * W, now, cur, cur_start, interval_ms);\n",
      "               (long long)D * W, now, cur, cur_start, interval_ms);\n"
      "  STAMP(1);\n"),
-    ("cms.cu", "  param::admit(r, sm);\n",
-     "  STAMP(2);\n  param::admit(r, sm);\n  STAMP(10);\n"),
+    ("cms.cu", "  param::admit(a, sm);\n",
+     "  STAMP(2);\n  param::admit(a, sm);\n  STAMP(10);\n"),
     ("cms.cu", "  if (threadIdx.x == 0) starts[cur] = cur_start;\n}",
      "  if (threadIdx.x == 0) starts[cur] = cur_start;\n  STAMP(11);\n}"),
 )
@@ -127,8 +127,9 @@ def main(argv) -> int:
                             [_build.nvcc_path(), *_build.NVCC_FLAGS]))
     fn = lib.sentinel_cms_decide
     fn.argtypes, fn.restype = cms_cuda._C_ARGTYPES, ctypes.c_int
-    words = lib.sentinel_param_work_words
-    words.argtypes, words.restype = [ctypes.c_int], ctypes.c_longlong
+    words = lib.sentinel_cms_work_words
+    words.argtypes = [ctypes.c_int, ctypes.c_int]
+    words.restype = ctypes.c_longlong
     read = lib.sentinel_stamps
     read.argtypes = [ctypes.c_void_p, ctypes.c_int]
     read.restype = ctypes.c_int
